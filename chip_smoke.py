@@ -7,7 +7,7 @@ failure exits non-zero; no phase is caught):
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 1. build every kernel from ``coraza_kubernetes_operator_tpu_torch/csrc``
-   with ``nvcc`` (all sources at once);
+   with ``nvcc``;
 2. one phase per kernel: the crs-lite banks of the main path (the flat
    bin, the dfa-hot gather banks, the prefilter banks) on seeded random
    bytes at the main path's tier shapes (B x L = 12288 x 64, 1024 x 2048)
@@ -103,8 +103,6 @@ def main() -> int:
     ap.add_argument("--windows", type=int, default=5, help="timed windows after the first")
     ap.add_argument("--profile", type=Path, metavar="FILE",
                     help="profile one window by kernel; write the table to FILE")
-    ap.add_argument("--compare-chunks", type=int, default=0, metavar="N",
-                    help="also time N windows at the reference's segment chunk budget")
     args = ap.parse_args()
 
     import torch
@@ -121,7 +119,6 @@ def main() -> int:
     from coraza_kubernetes_operator_tpu_torch.corpus import synthetic_requests
     from coraza_kubernetes_operator_tpu_torch.engine import WafEngine
     from coraza_kubernetes_operator_tpu_torch.ftw.corpus import load_ruleset_text
-    from coraza_kubernetes_operator_tpu_torch.models import waf_model
     from coraza_kubernetes_operator_tpu_torch.ops import dfa, dfa_flat, dfa_gather, kernels
 
     # -- phase 0: the card ---------------------------------------------------
@@ -138,12 +135,8 @@ def main() -> int:
 
     # -- phase 1: build --------------------------------------------------------
     t0 = time.perf_counter()
-    libs = kernels.build(verbose=True)
+    libs = kernels.build()
     log(f"phase 1: built {sorted(libs)} in {time.perf_counter() - t0:.3f} s")
-    for name, report in kernels.BUILD_LOG.items():
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"  ptxas {name}: {line.strip()}")
 
     # -- phase 2: each kernel against its plain version -----------------------
     rules = load_ruleset_text()
@@ -177,8 +170,9 @@ def main() -> int:
             d, l = random_rows(rng, b, length)
             dt, lt = torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)
             g = bank.n_groups
-            per_step = 2 if name == "gather" else 1  # class lookup + table lookup
-            steps = int(np.minimum(l, length).sum()) * g * per_step
+            # Per active byte: one table lookup per group; a gather bank's
+            # joint class map is shared by its groups, so one class lookup.
+            steps = int(np.minimum(l, length).sum()) * (g + 1 if name == "gather" else g)
             nbytes = d.nbytes + l.nbytes + bank.kt.tab.numel() * 2 + bank.kt.mend.numel() + b * g
             if name == "gather":
                 cases.append((lambda bk=bank, x=dt, y=lt: dfa_gather.scan_gather_bank(bk, x, y),
@@ -260,37 +254,24 @@ def main() -> int:
         raise SystemExit(f"{len(diff)} verdicts differ from the CPU engine, first {diff[:5]}")
     log(f"phase 3: 4096 verdicts identical to the CPU engine; {blocked} blocked")
 
-    def time_windows(n: int, seed0: int, what: str) -> None:
-        walls, host = [], []
-        torch.cuda.reset_peak_memory_stats()
-        for w in range(n):
-            window = synthetic_requests(4096, attack_ratio=0.3, seed=seed0 + w)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            inflight = eng.prepare(window)
-            verdicts_w = eng.collect(inflight)
-            walls.append(time.perf_counter() - t0)
-            host.append(inflight.host_s)
-            if len(verdicts_w) != len(window):
-                raise SystemExit("window returned the wrong number of verdicts")
-        p50 = statistics.median(walls)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"phase 3: {what}: p50 window {p50 * 1e3:.1f} ms ({4096 / p50:.0f} req/s) over "
-            f"{n} fresh windows, p50 prepare {statistics.median(host) * 1e3:.1f} ms, peak "
-            f"device memory {peak:.2f} GiB; windows ms {[round(x * 1e3, 1) for x in walls]} "
-            f"[{card}]")
-
-    time_windows(args.windows, 100,
-                 f"segment chunk budget {waf_model._SEG_CHUNK_ELEMS_CUDA} elements (the card's)")
-    if args.compare_chunks:
-        # The reference's per-chunk budget, for comparison on the same card.
-        default = waf_model._SEG_CHUNK_ELEMS_CUDA
-        waf_model._SEG_CHUNK_ELEMS_CUDA = 2**27
-        try:
-            time_windows(args.compare_chunks, 200,
-                         "segment chunk budget 134217728 elements (the reference's)")
-        finally:
-            waf_model._SEG_CHUNK_ELEMS_CUDA = default
+    walls, host = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for w in range(args.windows):
+        window = synthetic_requests(4096, attack_ratio=0.3, seed=100 + w)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inflight = eng.prepare(window)
+        verdicts_w = eng.collect(inflight)
+        walls.append(time.perf_counter() - t0)
+        host.append(inflight.host_s)
+        if len(verdicts_w) != len(window):
+            raise SystemExit("window returned the wrong number of verdicts")
+    p50 = statistics.median(walls)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"phase 3: p50 window {p50 * 1e3:.1f} ms ({4096 / p50:.0f} req/s) over "
+        f"{args.windows} fresh windows, p50 prepare {statistics.median(host) * 1e3:.1f} ms, "
+        f"peak device memory {peak:.2f} GiB; windows ms {[round(x * 1e3, 1) for x in walls]} "
+        f"[{card}]")
 
     if args.profile:
         from torch.profiler import ProfilerActivity, profile

@@ -61,8 +61,9 @@ _SEG_BITMAP_ELEMS = int(_os.environ.get("CKO_SEG_BITMAP_ELEMENTS", str(2**30)))
 # The per-chunk budget is the reference's (sized for a TPU's HBM) on the
 # CPU and 8x larger on the card (80 GB): every chunk re-issues each
 # block's whole chain program from the host, so fewer chunks are fewer
-# launches. chip_smoke.py reports a window's peak device memory and its
-# time at both budgets. CKO_SEG_CHUNK_ELEMENTS sets both.
+# launches. chip_smoke.py reports a window's peak device memory and time;
+# CKO_SEG_CHUNK_ELEMENTS sets both budgets, so running it with
+# CKO_SEG_CHUNK_ELEMENTS=134217728 times the card at the reference's.
 _SEG_CHUNK_ELEMS = int(_os.environ.get("CKO_SEG_CHUNK_ELEMENTS", str(2**27)))
 _SEG_CHUNK_ELEMS_CUDA = int(_os.environ.get("CKO_SEG_CHUNK_ELEMENTS", str(2**30)))
 

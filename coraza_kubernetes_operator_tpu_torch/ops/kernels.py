@@ -4,8 +4,7 @@ Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds. Libraries land in ``build/torch_kernels/`` at the
 repository root, named by a hash of the sources, and are built at first
-use: importing this module never needs ``nvcc`` or a card. All sources
-start compiling together.
+use: importing this module never needs ``nvcc`` or a card.
 
 Launchers return ``cudaGetLastError()`` after the launch; ``check``
 raises on anything but 0. Pointers and the stream go through
@@ -32,9 +31,6 @@ NVCC_FLAGS = (
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[str, object] = {}
-# The compiler's report per source built in this process (resource usage
-# when built with ``verbose=True``).
-BUILD_LOG: dict[str, str] = {}
 
 
 def sources() -> list[Path]:
@@ -62,40 +58,20 @@ def _nvcc() -> str:
     return str(path)
 
 
-def build(verbose: bool = False) -> dict[str, Path]:
+def build() -> dict[str, Path]:
     """Compile every source that has no library for the current source
-    hash; returns {source stem: library path}. ``verbose`` adds
-    ``-Xptxas -v`` and keeps the compiler's report in ``BUILD_LOG``."""
+    hash; returns {source stem: library path}. ``nvcc`` writes its errors
+    to stderr and a failed build raises."""
     with _LOCK:
         tag = _source_hash()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         libs = {src.stem: BUILD_DIR / f"lib{src.stem}-{tag}.so" for src in sources()}
-        todo = [s for s in sources() if not libs[s.stem].exists()]
-        if not todo:
-            return libs
-        nvcc = _nvcc()
-        procs = []
-        for src in todo:
-            tmp = libs[src.stem].with_suffix(f".so.tmp{os.getpid()}")
-            cmd = [nvcc, *NVCC_FLAGS]
-            if verbose:
-                cmd += ["-Xptxas", "-v"]
-            cmd += ["-o", str(tmp), str(src)]
-            procs.append(
-                (src, tmp, subprocess.Popen(
-                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-                ))
-            )
-        failed = []
-        for src, tmp, proc in procs:
-            log, _ = proc.communicate()
-            BUILD_LOG[src.name] = log
-            if proc.returncode != 0:
-                failed.append(f"{src.name} (exit {proc.returncode}):\n{log}")
+        for src in sources():
+            if libs[src.stem].exists():
                 continue
+            tmp = libs[src.stem].with_suffix(f".so.tmp{os.getpid()}")
+            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)], check=True)
             os.replace(tmp, libs[src.stem])
-        if failed:
-            raise RuntimeError("nvcc failed for " + "\n".join(failed))
         return libs
 
 

@@ -63,9 +63,6 @@ def test_config2_window_matches_jax_automata_on(monkeypatch):
     assert m.flat_banks and m.gather_banks and m.pre_banks
 
 
-
-
-
 @pytest.mark.parametrize("automata", ["1", "0"])
 def test_small_rules_every_matcher_kind_matches_jax(monkeypatch, automata):
     monkeypatch.setenv("CKO_AUTOMATA", automata)
