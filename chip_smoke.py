@@ -11,12 +11,12 @@ failure exits non-zero; no phase is caught):
    native host runtime from ``native/src`` with ``g++``, each timed;
 2. one phase per kernel at the main path's tier shapes (B x L = 12288 x
    64, 1024 x 2048) and at B = 4096, on seeded random bytes: the scan
-   kernels on crs-lite's banks (the flat bin, the dfa-hot gather banks,
-   the prefilter banks), the finals kernel on every crs-lite segment
-   block with finals columns, its operands taken from the block's own
-   chain program (``ops/segment.py::finals_inputs``). Each kernel's output
-   must be bit-equal to its plain version's on the card. Times come from
-   CUDA events after warm-up;
+   kernels on crs-lite's banks (the flat bin, all dfa-hot gather banks in
+   one fused launch, the prefilter banks), the finals kernel on every
+   crs-lite segment block with finals columns, its operands taken from the
+   block's own chain program (``ops/segment.py::finals_inputs``). Each
+   kernel's output must be bit-equal to its plain version's on the card.
+   Times come from CUDA events after warm-up around the wrappers' calls;
 3. the slice-1 path: ``WafEngine(crs-lite).evaluate`` on a 4096-request
    window on the card (Python tensorize path, finals tier off), verdicts
    identical to the same engine on the CPU, at least one request blocked,
@@ -25,16 +25,26 @@ failure exits non-zero; no phase is caught):
 4. the slice-2 path: the same 4096 requests as one blob through
    ``prepare_blob`` + ``collect`` on the native tiered path with
    ``CKO_PALLAS_FINALS=1``: verdicts equal to phase 3's, all four kernels
-   launched; the p50 window with the finals tier on and off (fresh
-   windows, in turns) and the p50 native assemble time; then
-   ``evaluate_phased`` and ``evaluate_response`` against the CPU engine
-   and ``host_fallback.evaluate`` against the card's verdicts.
+   launched, at most one fused gather launch per tier; the p50 window
+   with the finals tier on and off (fresh windows, in turns) and the p50
+   native assemble time; then ``evaluate_phased`` and
+   ``evaluate_response`` against the CPU engine and
+   ``host_fallback.evaluate`` against the card's verdicts;
+5. after every timed window (no profiler session runs before them): each
+   kernel's own device time per launch at phase 2's shapes, from one
+   ``torch.profiler`` pass each (kernel events by name); then one
+   profiled finals-on blob window (launches, device busy time, and no
+   [T, Q, Gf] stack of per-group rows).
 
 The last lines are the kernel table (one JSON object), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. With no card, or
 without the package beside this file, it exits non-zero and prints no
-result. ``--profile FILE`` adds a ``torch.profiler`` breakdown of one
-blob window of phase 4 (finals tier on) by kernel name, written to FILE.
+result. ``--profile FILE`` writes the profiled phase-4 window's
+``torch.profiler`` table by kernel name to FILE. ``--probe-profiler``
+asks whether a ``torch.profiler`` session slows the windows that follow
+it: before phase 5 it times fresh phase-3 and finals-off blob windows,
+opens and closes one empty profiler session, times them again, and once
+more after phase 5's sessions.
 """
 
 from __future__ import annotations
@@ -90,6 +100,61 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms_per_launch(fn, kernel_name: str, reps: int) -> tuple[float | None, int]:
+    """A kernel's own device time per launch, from one ``torch.profiler``
+    pass over ``reps`` calls of ``fn``: the CUDA kernel events whose name
+    holds ``kernel_name``. Returns (ms per launch or None, launches seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.key]
+    n = sum(e.count for e in events)
+    us = sum(e.self_device_time_total for e in events)
+    return (us / n / 1e3 if n and us else None), n
+
+
+class GroupRowStacks:
+    """Counts ``torch.stack``/``torch.cat`` calls, while active, whose
+    inputs are Gf per-group reachability rows [T, Q] (or [T, Q, 1]) for a
+    finals block's group count Gf and a tier's Q: the [T, Q, Gf] stack the
+    finals tier no longer builds. (The profiler records no shapes for a
+    tensor list, so the calls are watched at the Python level.)"""
+
+    def __init__(self, gfs: set, qs: set):
+        import torch
+
+        self.gfs, self.qs, self.count = gfs, qs, 0
+        watcher = self
+
+        class Mode(torch.overrides.TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                if func in (torch.stack, torch.cat) and args:
+                    watcher.look(args[0])
+                return func(*args, **(kwargs or {}))
+
+        self.mode = Mode()
+
+    def look(self, rows) -> None:
+        if isinstance(rows, (list, tuple)) and len(rows) in self.gfs and all(
+                x.dim() in (2, 3) and x.shape[1] in self.qs and tuple(x.shape[2:]) in ((), (1,))
+                for x in rows):
+            self.count += 1
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
 def random_rows(rng, b: int, length: int):
     """Seeded traffic-like bytes: mostly printable ASCII with some
     attack-token fragments spliced in, ragged lengths in [0, L]."""
@@ -116,7 +181,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--windows", type=int, default=5, help="timed windows after the first")
     ap.add_argument("--profile", type=Path, metavar="FILE",
-                    help="profile one blob window by kernel; write the table to FILE")
+                    help="write the profiled blob window's table by kernel to FILE")
+    ap.add_argument("--probe-profiler", action="store_true",
+                    help="time windows before and after torch.profiler sessions")
     args = ap.parse_args()
 
     import torch
@@ -135,6 +202,7 @@ def main() -> int:
     from coraza_kubernetes_operator_tpu_torch import native
     from coraza_kubernetes_operator_tpu_torch.corpus import synthetic_requests
     from coraza_kubernetes_operator_tpu_torch.engine import WafEngine
+    from coraza_kubernetes_operator_tpu_torch.engine import waf as waf_mod
     from coraza_kubernetes_operator_tpu_torch.engine.request import HttpRequest, HttpResponse
     from coraza_kubernetes_operator_tpu_torch.ftw.corpus import load_ruleset_text
     from coraza_kubernetes_operator_tpu_torch.ops import (
@@ -177,9 +245,29 @@ def main() -> int:
     if not (model.flat_banks and model.gather_banks and model.pre_banks):
         raise SystemExit("crs-lite model lacks a bank kind of the main path")
     rng = np.random.default_rng(SEED)
+    # Each kernel's own device time per launch is read by torch.profiler
+    # after the timed windows (phase 5), so no profiler session runs
+    # before them: (kernel, B, L, function making the cases, kernel event name, reps).
+    deferred = []
 
-    def scan_case(name, banks):
-        """Per bank: (kernel call, plain call, bytes moved, lookups)."""
+    def scan_case(name, banks, b, length, rng):
+        """Per launch: (kernel call, plain call, bytes moved, lookups)."""
+        if name == "gather":
+            # All dfa-hot banks in one fused launch, one input per pipeline.
+            tier = model.gather_tier
+            ins = [random_rows(rng, b, length) for _ in tier.pipelines]
+            tens = [(torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)) for d, l in ins]
+            on = (True,) * len(tier.banks)
+            # Per active byte: one class lookup per bank, one table lookup
+            # per group.
+            steps = sum(int(np.minimum(ins[slot][1], length).sum()) * (bk.n_groups + 1)
+                        for bk, slot in zip(tier.banks, tier.pipe_slot))
+            nbytes = (sum(d.nbytes + l.nbytes for d, l in ins) + 2 * tier.tab.numel()
+                      + tier.cmaps.numel() + 4 * (tier.bank_info.numel() + tier.grp_info.numel())
+                      + tier.mend.numel() + tier.n_groups + b * tier.n_groups)
+            return [(lambda x=tens: dfa_gather.scan_gather_tier(tier, x, on),
+                     lambda x=tens: dfa_gather.scan_gather_tier_plain(tier, x, on),
+                     nbytes, steps)]
         cases = []
         for bank in banks:
             if name == "flat":
@@ -198,32 +286,30 @@ def main() -> int:
             d, l = random_rows(rng, b, length)
             dt, lt = torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)
             g = bank.n_groups
-            # Per active byte: one table lookup per group; a gather bank's
-            # joint class map is shared by its groups, so one class lookup.
-            steps = int(np.minimum(l, length).sum()) * (g + 1 if name == "gather" else g)
+            # Per active byte: one table lookup per group.
+            steps = int(np.minimum(l, length).sum()) * g
             nbytes = d.nbytes + l.nbytes + bank.kt.tab.numel() * 2 + bank.kt.mend.numel() + b * g
-            if name == "gather":
-                cases.append((lambda bk=bank, x=dt, y=lt: dfa_gather.scan_gather_bank(bk, x, y),
-                              lambda bk=bank, x=dt, y=lt: dfa_gather.scan_gather_bank_jnp(bk, x, y),
-                              nbytes + 256, steps))
-            else:
-                cases.append((lambda bk=bank, x=dt, y=lt: dfa.scan_dfa_bank(bk, x, y),
-                              lambda bk=bank, x=dt, y=lt: dfa.scan_dfa_bank_take(bk, x, y),
-                              nbytes, steps))
+            cases.append((lambda bk=bank, x=dt, y=lt: dfa.scan_dfa_bank(bk, x, y),
+                          lambda bk=bank, x=dt, y=lt: dfa.scan_dfa_bank_take(bk, x, y),
+                          nbytes, steps))
         return cases
 
+    # (name, short, module, banks, source, replaces, device kernel name)
     kernel_defs = [
         ("cko_scan_flat", "flat", dfa_flat, model.flat_banks,
-         f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_flat.py:439"),
+         f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_flat.py:439",
+         "dfa_scan_kernel"),
         ("cko_scan_gather", "gather", dfa_gather, model.gather_banks,
-         f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_gather_pallas.py:46"),
+         f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_gather_pallas.py:46",
+         "gather_tier_kernel"),
         ("cko_scan_dense", "dense", dfa, model.pre_banks,
-         f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_pallas.py:52"),
+         f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_pallas.py:52",
+         "dfa_scan_kernel"),
     ]
     table = {}
-    for kname, short, _mod, banks, src, replaces in kernel_defs:
+    for kname, short, _mod, banks, src, replaces, dev_name in kernel_defs:
         for b, length in SHAPES:
-            cases = scan_case(short, banks)
+            cases = scan_case(short, banks, b, length, rng)
             err = 0
             for kern, plain, _nb, _st in cases:
                 got, want = kern(), plain()
@@ -239,18 +325,22 @@ def main() -> int:
             reps = 20 if length <= 64 else 5
             ms = cuda_ms(lambda: [c[0]() for c in cases], reps)
             plain_ms = cuda_ms(lambda: [c[1]() for c in cases], 2)
+            deferred.append((kname, b, length, lambda s_=short, bk=banks, b=b, length=length:
+                             scan_case(s_, bk, b, length, np.random.default_rng(SEED)),
+                             dev_name, reps))
             nbytes = sum(c[2] for c in cases)
             lookups = sum(c[3] for c in cases)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, lookups / lookups_per_s * 1e3
             bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-            log(f"phase 2: {kname} B={b} L={length} banks={len(cases)}: bit-equal; "
-                f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} ({bound_by}: "
-                f"{nbytes} B, {lookups} lookups) [{card}]")
+            log(f"phase 2: {kname} B={b} L={length} launches={len(cases)}: bit-equal; "
+                f"ms={ms:.4f} ({ms / len(cases):.4f} per launch) plain_ms={plain_ms:.3f} "
+                f"bound_ms={bound_ms:.5f} ({bound_by}: {nbytes} B, {lookups} lookups) [{card}]")
             if (b, length) == SHAPES[0]:
                 table[kname] = {
                     "name": kname, "route": "cuda", "source": src, "replaces": replaces,
                     "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                    "launches_per_call": len(cases), "device_ms_per_launch": None,
                 }
 
     # The finals kernel: every crs-lite segment block with finals columns,
@@ -258,29 +348,49 @@ def main() -> int:
     fin_blocks = [i for i, s in enumerate(model.segs) if segment.finals_cols(s.spec)]
     log(f"phase 2: segment blocks with finals columns {fin_blocks}, columns "
         f"{[segment.finals_cols(model.segs[i].spec) for i in fin_blocks]}")
-    for b, length in SHAPES:
+
+    def finals_cases(b, length, rng):
+        """Per block: (kernel call, plain call, conv1d call, bytes moved,
+        gated MACs, dense MACs)."""
         cases = []
         for i in fin_blocks:
             blk = model.segs[i]
             d, l = random_rows(rng, b, length)
-            embed, weights, gj, cg, w, q = segment.finals_inputs(
-                blk.kernel, blk.spec, torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)
+            embed, suffix, lens, tables, q = segment.finals_inputs(
+                blk.kernel, blk.spec, torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev),
+                cache=blk.finals,
             )
-            c, nf = embed.shape[2], weights.shape[1]
+            c, nf, w, ns = embed.shape[2], tables.nf, tables.w, suffix.shape[2]
+            gj = segment_finals.reach(suffix, lens, tables, q)  # [T, Q, Gf]
             # MACs the function needs: every window score where the column's
             # group is reachable (the others cannot set a bit).
             per_group = gj.sum(dim=(0, 1), dtype=torch.int64)
-            gated = int(per_group[torch.as_tensor(cg, device=dev)].sum()) * w * c
-            nbytes = (embed.numel() + weights.numel() * weights.element_size() + gj.numel()
-                      + 4 * nf + b * nf)
-            conv_w = weights.reshape(w, c, nf).permute(2, 1, 0).to(torch.bfloat16).contiguous()
+            gated = int(per_group[tables.col_group.long()].sum()) * w * c
+            # Bytes the function needs: the suffix bytes at positions 1 ..
+            # len + 1 (reach reads no other), the embed positions of the
+            # windows that start at a reachable position, lengths,
+            # descriptors, the weights as the kernel reads them (bitplanes,
+            # thresholds, column groups), and out.
+            sfx_pos = int((lens.to(torch.int64) + 1).clamp(max=q - 1).sum())
+            starts = gj.any(dim=2).to(torch.float32)[:, None]  # [T, 1, Q]
+            windows = F.conv1d(F.pad(starts, (w - 1, w - 1)), torch.ones((1, 1, w), device=dev))
+            emb_pos = int((windows > 0).sum())  # embed positions inside some window
+            del gj
+            nbytes = (emb_pos * c + sfx_pos * ns + 4 * b + tables.desc.numel() * 4
+                      + tables.kbits.numel() * 8 + tables.thr.numel() * 4 + 4 * nf + b * nf)
+            conv_w = tables.weights.reshape(w, c, nf).permute(2, 1, 0).to(torch.bfloat16).contiguous()
             conv_x = embed.permute(0, 2, 1).to(torch.bfloat16).contiguous()
+            operands = (embed, suffix, lens, tables)
             cases.append((
-                lambda a=(embed, weights, gj, cg), w=w, q=q: segment_finals.finals_match(*a, w=w, q=q),
-                lambda a=(embed, weights, gj, cg), w=w, q=q: segment_finals.finals_match_plain(*a, w=w, q=q),
+                lambda a=operands, q=q: segment_finals.finals_match(*a, q=q),
+                lambda a=operands, q=q: segment_finals.finals_match_plain(*a, q=q),
                 lambda x=conv_x, k=conv_w: F.conv1d(x, k),
                 nbytes, gated, b * q * nf * w * c,
             ))
+        return cases
+
+    for b, length in SHAPES:
+        cases = finals_cases(b, length, rng)
         err = 0
         for kern, plain, *_ in cases:
             got, want = kern(), plain()
@@ -297,13 +407,16 @@ def main() -> int:
         ms = cuda_ms(lambda: [c[0]() for c in cases], reps)
         plain_ms = cuda_ms(lambda: [c[1]() for c in cases], 2)
         conv_ms = cuda_ms(lambda: [c[2]() for c in cases], reps)
+        deferred.append(("cko_finals_match", b, length, lambda b=b, length=length:
+                         finals_cases(b, length, np.random.default_rng(SEED)), "finals_kernel", reps))
         nbytes = sum(c[3] for c in cases)
         gated = sum(c[4] for c in cases)
         dense = sum(c[5] for c in cases)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * gated / BF16_FLOP_PER_S * 1e3
         bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
         log(f"phase 2: cko_finals_match B={b} L={length} blocks={len(cases)}: bit-equal; "
-            f"ms={ms:.4f} plain_ms={plain_ms:.3f} conv1d_ms(conv part only)={conv_ms:.4f} "
+            f"ms={ms:.4f} ({ms / len(cases):.4f} per launch) "
+            f"plain_ms={plain_ms:.3f} conv1d_ms(conv part only)={conv_ms:.4f} "
             f"bound_ms={bound_ms:.5f} ({bound_by}: {nbytes} B, {gated} gated MACs; dense "
             f"{dense} MACs = {2 * dense / BF16_FLOP_PER_S * 1e3:.5f} ms) [{card}]")
         if (b, length) == SHAPES[0]:
@@ -313,6 +426,7 @@ def main() -> int:
                 "replaces": "coraza_kubernetes_operator_tpu/ops/segment_pallas.py:55",
                 "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": conv_ms,
+                "launches_per_call": len(cases), "device_ms_per_launch": None,
             }
         del cases
         torch.cuda.empty_cache()
@@ -375,6 +489,16 @@ def main() -> int:
         raise SystemExit("the phase-4 engine is not on the native tiered path")
     log(f"phase 4: native engine built on {eng4.device} in {time.perf_counter() - t0:.3f} s")
     mods = {**{k: mod for k, _s, mod, *_ in kernel_defs}, "cko_finals_match": segment_finals}
+    # Count the window's tiers (one matcher call each) around the engine's
+    # own call.
+    tier_widths = []
+    real_match = waf_mod.match_tier_packed
+
+    def counted(model_, data, *a, **k):
+        tier_widths.append(int(data.shape[1]))
+        return real_match(model_, data, *a, **k)
+
+    waf_mod.match_tier_packed = counted
     for mod in mods.values():
         mod.LAUNCHES = 0
     torch.cuda.synchronize()
@@ -383,12 +507,16 @@ def main() -> int:
     verdicts4 = eng4.collect(inflight)
     first_s = time.perf_counter() - t0
     launches = {k: mod.LAUNCHES for k, mod in mods.items()}
+    waf_mod.match_tier_packed = real_match
     for k, n in launches.items():
         table[k]["launches"] = n
     log(f"phase 4: first blob window {first_s * 1e3:.1f} ms (assemble "
-        f"{inflight.assemble_s * 1e3:.1f} ms); kernel launches {launches}")
+        f"{inflight.assemble_s * 1e3:.1f} ms); {len(tier_widths)} tiers of widths {tier_widths}; "
+        f"kernel launches {launches}")
     if not all(launches.values()):
         raise SystemExit(f"a kernel of the slice-2 path was not launched: {launches}")
+    if launches["cko_scan_gather"] > len(tier_widths):
+        raise SystemExit(f"{launches['cko_scan_gather']} gather launches for {len(tier_widths)} tiers")
     if not inflight.arena_lease._released:
         raise SystemExit("collect did not release the window's arena lease")
     differ(verdicts4, verdicts, "phase 4 against phase 3")
@@ -432,29 +560,85 @@ def main() -> int:
         f"CPU engine, host_fallback.evaluate (512) equal to the card in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    if args.profile:
+    def probe(tag: str, seed: int, n: int = 3) -> None:
+        """Fresh phase-3 windows and finals-off blob windows, in turns."""
+        py, off = [], []
+        os.environ["CKO_PALLAS_FINALS"] = "0"
+        for w in range(n):
+            for engine, walls_ in ((eng, py), (eng4, off)):
+                window = synthetic_requests(4096, attack_ratio=0.3, seed=seed + 2 * w + (engine is eng4))
+                blob = native.serialize_requests(window) if engine is eng4 else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                inflight = engine.prepare_blob(blob, len(window)) if blob else engine.prepare(window)
+                engine.collect(inflight)
+                walls_.append(time.perf_counter() - t0)
+        os.environ["CKO_PALLAS_FINALS"] = "1"
+        log(f"probe {tag}: phase-3 windows ms {[round(x * 1e3, 1) for x in py]} (p50 "
+            f"{statistics.median(py) * 1e3:.1f}), finals-off blob windows ms "
+            f"{[round(x * 1e3, 1) for x in off]} (p50 {statistics.median(off) * 1e3:.1f}) [{card}]")
+
+    if args.probe_profiler:
         from torch.profiler import ProfilerActivity, profile
 
-        window = synthetic_requests(4096, attack_ratio=0.3, seed=999)
-        blob = native.serialize_requests(window)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            inflight = eng4.prepare_blob(blob, len(window))
-            eng4.collect(inflight)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        # Kernel events only: an aten op's self device time repeats its kernels'.
-        kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
-        launches = sum(e.count for e in kernel_events)
-        report = events.table(sort_by="self_cuda_time_total", row_limit=40)
+        probe("before any profiler session", 300)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            pass
+        probe("after one empty profiler session", 400)
+
+    # -- phase 5: each kernel's own device time per launch ----------------------
+    for kname, b, length, build, dev_name, reps in deferred:
+        cases = build()
+        dev_ms, seen = device_ms_per_launch(lambda: [c[0]() for c in cases], dev_name, reps)
+        log(f"phase 5: {kname} B={b} L={length}: device_ms_per_launch={dev_ms} ({seen} "
+            f"{dev_name} events over {reps} reps of {len(cases)} launches) [{card}]")
+        if (b, length) == SHAPES[0]:
+            table[kname]["device_ms_per_launch"] = dev_ms
+        del cases
+        torch.cuda.empty_cache()
+    if args.probe_profiler:
+        probe(f"after phase 5's {len(deferred)} profiler sessions", 500)
+
+    # One profiled finals-on blob window: launches, device busy time, the
+    # two redesigned kernels' events, and no [T, Q, Gf] stack of group rows.
+    from torch.profiler import ProfilerActivity, profile
+
+    gfs = {t.gf for s_ in model.segs for t in s_.finals.values()} | {
+        t.gf for s_ in eng4.model.segs for t in s_.finals.values()}
+    qs = {w_ + 2 for w_ in tier_widths}
+    with GroupRowStacks(gfs, qs) as control:  # the watch sees such a stack
+        torch.stack([torch.zeros((8, min(qs)), dtype=torch.bool, device=dev)] * min(gfs), dim=-1)
+    if control.count != 1:
+        raise SystemExit("the stack watch does not see a [T, Q, Gf] stack")
+    window = synthetic_requests(4096, attack_ratio=0.3, seed=999)
+    blob = native.serialize_requests(window)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            GroupRowStacks(gfs, qs) as watch:
+        t0 = time.perf_counter()
+        inflight = eng4.prepare_blob(blob, len(window))
+        eng4.collect(inflight)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Kernel events only: an aten op's self device time repeats its kernels'.
+    kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
+    n_launch = sum(e.count for e in kernel_events)
+    mine = {name: (sum(e.count for e in kernel_events if name in e.key),
+                   sum(e.self_device_time_total for e in kernel_events if name in e.key) / 1e3)
+            for name in ("finals_kernel", "gather_tier_kernel", "dfa_scan_kernel")}
+    stacks = watch.count
+    log(f"phase 4: profiled blob window (finals on): {wall_ms:.1f} ms wall (profiler on), "
+        f"assemble {inflight.assemble_s * 1e3:.1f} ms, device busy {device_ms:.3f} ms in "
+        f"{n_launch} kernel launches; (launches, device ms) {mine}; [T, Q, Gf] stacks of "
+        f"group rows (Gf in {sorted(gfs)}, Q in {sorted(qs)}): {stacks} [{card}]")
+    if stacks:
+        raise SystemExit(f"the finals-on window built {stacks} [T, Q, Gf] stacks")
+    report = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    log("\n".join(report.splitlines()[:25]))
+    if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
         args.profile.write_text(f"{card}\n{report}\n")
-        log(f"phase 4: profiled blob window: {wall_ms:.1f} ms wall (profiler on), assemble "
-            f"{inflight.assemble_s * 1e3:.1f} ms, device busy {device_ms:.1f} ms in {launches} "
-            f"kernel launches [{card}]")
-        log("\n".join(report.splitlines()[:25]))
 
     out(json.dumps({"kernels": list(table.values())}))
     out(card)

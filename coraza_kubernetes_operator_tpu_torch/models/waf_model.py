@@ -45,7 +45,14 @@ from ..compiler.ruleset import (
 from ..compiler.segments import plan_segments
 from ..ops.dfa import DFABank, scan_dfa_bank, stack_dfas
 from ..ops.dfa_flat import build_flat_bank, plan_flat_bins, scan_flat_bank
-from ..ops.dfa_gather import GatherBank, plan_gather_bins, scan_gather_bank, stack_gather_bank
+from ..ops.dfa_gather import (
+    GatherBank,
+    GatherTier,
+    build_gather_tier,
+    plan_gather_bins,
+    scan_gather_tier,
+    stack_gather_bank,
+)
 from ..ops.segment import SegmentBlock, build_segment_block, conv_n2_cols, match_segment_block
 from ..ops.transforms import apply_device_pipeline
 from ..utils.device import resolve_device
@@ -155,6 +162,8 @@ class WafModel:
     numvar_col: torch.Tensor | None = field(default=None, init=False, repr=False)
     counter_col: torch.Tensor | None = field(default=None, init=False, repr=False)
     long_col: torch.Tensor | None = field(default=None, init=False, repr=False)
+    # Every gather bank laid out for one fused launch per tier.
+    gather_tier: GatherTier | None = field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.numvar_col = self.e_numvar.argmax(dim=0)
@@ -162,6 +171,8 @@ class WafModel:
         if self.seg_perm is not None:
             # seg column c reads long column long_col[c]
             self.long_col = self.seg_perm.to(torch.int32).argmax(dim=0)
+        if self.gather_banks:
+            self.gather_tier = build_gather_tier(self.gather_banks, self.gather_bank_pipelines)
 
     @property
     def device(self) -> torch.device:
@@ -554,7 +565,8 @@ def segment_tier_hits(
                 out.append(zeros_for(i)[rows])
                 continue
             td, tl = transformed_for(seg_pipelines[i])
-            out.append(match_segment_block(segs[i].kernel, segs[i].spec, td[rows], tl[rows]))
+            out.append(match_segment_block(segs[i].kernel, segs[i].spec, td[rows], tl[rows],
+                                           cache=segs[i].finals))
         return out
 
     n_seg_cols = sum(conv_n2_cols(segs[i].spec) for i in keep)
@@ -658,11 +670,16 @@ def match_tier(
         else:
             per_block.append(scan_dfa_bank(bank, *transformed_for(pid)))
     n_banks = len(model.banks)
-    for gi, (gb, pid) in enumerate(zip(model.gather_banks, model.gather_bank_pipelines)):
-        if not block_on(n_segs + n_banks + gi):
-            per_block.append(zeros(gb.n_groups))
+    gt = model.gather_tier
+    if gt is not None:
+        # Every gather bank in one launch; mask-off banks give zeros.
+        on = tuple(block_on(n_segs + n_banks + gi) for gi in range(len(gt.banks)))
+        if any(on):
+            read = {slot for slot, flag in zip(gt.pipe_slot, on) if flag}
+            inputs = [transformed_for(pid) if k in read else None for k, pid in enumerate(gt.pipelines)]
+            per_block.append(scan_gather_tier(gt, inputs, on))
         else:
-            per_block.append(scan_gather_bank(gb, *transformed_for(pid)))
+            per_block.append(zeros(gt.n_groups))
     n_gather = len(model.gather_banks)
     for pi, (pb, pid) in enumerate(zip(model.pre_banks, model.pre_bank_pipelines)):
         if not block_on(n_segs + n_banks + n_gather + pi):

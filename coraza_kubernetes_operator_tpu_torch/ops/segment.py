@@ -29,7 +29,7 @@ buffer; chain bitmaps say "the next element may start at ``p``".
 from __future__ import annotations
 
 import os as _os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from ..compiler.re_parser import ALL_BYTES
 from ..compiler.segments import Seg, SegmentPlan
 from ..utils.device import resolve_device
-from .segment_finals import finals_match
+from .segment_finals import finals_match, finals_tables, group_reach
+from .segment_finals import shift as _shift
 
 # Above this Q the NCE prefix sum uses cumsum instead of a [Q, Q]
 # triangular matmul — the table is O(Q²) and on long-body buckets (up to
@@ -109,6 +110,9 @@ class SegmentBlock:
 
     kernel: torch.Tensor  # [W, C, N] bf16
     spec: SegmentSpec
+    # The finals tier's constant operands per device, built at first use
+    # (``match_segment_block``'s ``cache``).
+    finals: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def n_groups(self) -> int:
@@ -238,22 +242,6 @@ def _channel_plane(chan: tuple, dpad: torch.Tensor) -> torch.Tensor:
     return _in_class(chan[1], dpad)  # ('ind', intervals)
 
 
-def _shift(x: torch.Tensor, k: int, fill) -> torch.Tensor:
-    """Shift along axis 1: out[:, p] = x[:, p + k] (k > 0 pulls from the
-    right, k < 0 from the left), ``fill`` where p + k is out of range."""
-    if k == 0:
-        return x
-    q = x.shape[1]
-    if abs(k) >= q:
-        return torch.full_like(x, fill)
-    pad = torch.full(
-        (x.shape[0], abs(k)) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=x.device
-    )
-    if k > 0:
-        return torch.cat([x[:, k:], pad], dim=1)
-    return torch.cat([pad, x[:, : q + k]], dim=1)
-
-
 def _rshift3(x: torch.Tensor, k: int) -> torch.Tensor:
     """out[:, p] = x[:, p - k], zero fill."""
     return _shift(x, -k, False if x.dtype == torch.bool else 0)
@@ -375,6 +363,8 @@ def match_segment_block(
     spec: SegmentSpec,
     data: torch.Tensor,  # [T, L] uint8 (zero padded past lengths)
     lengths: torch.Tensor,  # [T] int32
+    *,
+    cache: dict,
 ) -> torch.Tensor:
     """Returns group hits [T, n_groups] bool.
 
@@ -384,19 +374,25 @@ def match_segment_block(
     card, its plain version on the CPU. The reference also requires a TPU
     backend, rows a multiple of 128, C <= 128 and Gf <= 512; those only fit
     the Pallas kernel's tiles, the CUDA kernel has none, and the hits are
-    identical either way, so the port does not carry them over."""
-    return _match(kernel, spec, data, lengths, finals_tier_requested())
+    identical either way, so the port does not carry them over.
+
+    ``cache`` is the block's ``SegmentBlock.finals``: the tier's constant
+    operands (``segment_finals.FinalsTables``), built at the first call
+    with the tier on and kept across calls."""
+    return _match(kernel, spec, data, lengths, finals_tier_requested(), cache)
 
 
-def finals_inputs(kernel, spec: SegmentSpec, data: torch.Tensor, lengths: torch.Tensor):
+def finals_inputs(kernel, spec: SegmentSpec, data: torch.Tensor, lengths: torch.Tensor,
+                  *, cache: dict):
     """The finals tier's operands for ``data``, exactly as
     ``match_segment_block`` hands them to ``finals_match`` with the tier
-    on: ``(embed, weights, gj, col_group, w, q)``, or None when the block
-    has no finals column."""
-    return _match(kernel, spec, data, lengths, True, inputs_only=True)
+    on: ``(embed, suffix, lengths, tables, q)``, or None when the block has
+    no finals column."""
+    return _match(kernel, spec, data, lengths, True, cache, inputs_only=True)
 
 
-def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, inputs_only=False):
+def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: dict,
+           inputs_only=False):
     t, ln = data.shape
     dev = data.device
     w = spec.w
@@ -626,7 +622,13 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, inputs_o
         return (e & (iota3 <= len3)).any(dim=1)
 
     # --- suffix-deduped tier: right-to-left, batched over distinct suffixes.
+    # With the finals tier on, each signature's result also lands in its
+    # columns of one [T, Q, NS] buffer, the kernel's operand.
     s_store: dict[int, torch.Tensor] = {}
+    sid_col: dict[int, int] = {}
+    suffix = (
+        torch.empty((t, q, len(suffix_ids)), dtype=torch.bool, device=dev) if tier else None
+    )
     for sig_key, members in struct.items():
         sig_ops, a_end = sig_key
         ns = len(members)
@@ -646,31 +648,31 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, inputs_o
             else:  # gapcls
                 _, ivs, lo, hi = op
                 s = gap_cls(s, ivs, lo, hi, forward=True)
+        if tier:
+            suffix[:, :, len(sid_col) : len(sid_col) + ns].copy_(s)
         for i, (_skey, sid) in enumerate(members):
+            sid_col[sid] = len(sid_col)
             s_store[sid] = s[:, :, i]
 
-    # Per finals group: where its first segment's window may start ([T, Q]).
-    gj_per_group: list[torch.Tensor] = []
-    for sid, n_lead, n_real, a_start in finals:
-        s2 = s_store[sid]  # [T, Q], indexed by real start of the NEXT element
-        g = (iota >= 1) & (iota + n_real <= len1) & _shift(s2, n_real, False)
-        if a_start:
-            g = g & (iota == 1)
-        gj_per_group.append(_shift(g, n_lead, False))  # window-start index
     if tier:
-        # Finals columns in allocation order, each tagged with its group.
-        col_group = np.zeros(n_finals_cols, dtype=np.int32)
-        for slot, key in enumerate(finals):
-            a0, a1 = final_alloc[key]
-            col_group[a0:a1] = slot
+        if dev not in cache:
+            # Finals columns in allocation order, each tagged with its
+            # group; per group (suffix column, n_lead, n_real, a_start).
+            col_group = np.zeros(n_finals_cols, dtype=np.int32)
+            for slot, key in enumerate(finals):
+                a0, a1 = final_alloc[key]
+                col_group[a0:a1] = slot
+            desc = [(sid_col[sid], nl, nr, int(a_st)) for sid, nl, nr, a_st in finals]
+            weights = kernel_p[:, :, :off].reshape(-1, off).to(dev)  # [W*C, Nf]
+            cache[dev] = finals_tables(weights, desc, col_group, w=w)
         tier_args = (
             stack_planes(2),  # [T, 1+L+W, C]
-            kernel_p[:, :, :off].reshape(-1, off).to(dev),  # [W*C, Nf]
-            torch.stack(gj_per_group, dim=-1),  # [T, Q, Gf]
-            col_group,
+            suffix,  # [T, Q, NS]
+            lengths,
+            cache[dev],
         )
         if inputs_only:
-            return (*tier_args, w, q)
+            return (*tier_args, q)
 
     hits = torch.zeros((t, spec.n_groups), dtype=torch.bool, device=dev)
     if spec.branches:
@@ -680,9 +682,12 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, inputs_o
             cols.append(run_bucket(sig, idxs))  # [T, len(idxs)]
             col_groups.extend(spec.branches[bi][0] for bi in idxs)
         if tier:
-            cols.append(finals_match(*tier_args, w=w, q=q))  # [T, Nf]
+            cols.append(finals_match(*tier_args, q=q))  # [T, Nf]
         else:
-            for gj, key in zip(gj_per_group, finals):
+            # Per finals group: where its first segment's window may start.
+            for key in finals:
+                sid, n_lead, n_real, a_start = key
+                gj = group_reach(s_store[sid], n_lead, n_real, a_start, iota, len1)  # [T, Q]
                 a0, a1 = final_alloc[key]
                 cols.append((mslice(a0, a1) & gj[:, :, None]).any(dim=1))  # [T, NB]
         for gk in finals:

@@ -4,9 +4,12 @@ Each scan kernel is held bit for bit against its plain PyTorch version on
 the card, on edge cases the main path rarely shows: empty rows, lengths
 past the buffer, f32-class tables, a table too large for shared memory
 (read from global memory by the same kernel), and a multi-pipeline flat
-bin. The finals kernel is held against its plain version at a crs-lite
-block's widths, with two embed words per position, with no channel and
-at one row and column. Then small engine windows on the card (the
+bin. The fused gather tier (several banks over distinct pipelines, under
+kind masks) and the finals kernel are held against their plain versions
+at the main path's shapes (12288 x 64, 1024 x 2048 rows, and 4096 x 64);
+the finals kernel also at a crs-lite block's widths, with two embed words
+per position, with no channel and at one row and column. Then small
+engine windows on the card (the
 request path, and the blob path with the finals tier on and the body
 limit rejecting) must give the CPU engine's verdicts. Every test skips
 where there is no card. This file imports no
@@ -89,6 +92,21 @@ def test_gather_kernel_equals_plain(card, dfas):
     assert torch.equal(got, dfa_gather.scan_gather_bank_jnp(bank, data, lens))
 
 
+@pytest.mark.parametrize("b,length", [(12288, 64), (1024, 2048), (4096, 64), (777, 40)],
+                         ids=["12288x64", "1024x2048", "4096x64", "unaligned"])
+@pytest.mark.parametrize("on", [(True,) * 4, (False, True, False, True)], ids=["all", "masked"])
+def test_gather_tier_kernel_equals_plain(card, b, length, on):
+    banks = [dfa_gather.stack_gather_bank(d, device=card)
+             for d in (SMALL[:3], SMALL[3:], SMALL + MID, SMALL[:1])]
+    tier = dfa_gather.build_gather_tier(banks, [0, 3, 0, 5])
+    inputs = [tuple(_on(card, *_rows(b, length, seed=10 + k))) for k in range(3)]
+    before = dfa_gather.LAUNCHES
+    got = dfa_gather.scan_gather_tier(tier, inputs, on)
+    torch.cuda.synchronize()
+    assert dfa_gather.LAUNCHES == before + 1
+    assert torch.equal(got, dfa_gather.scan_gather_tier_plain(tier, inputs, on))
+
+
 def test_flat_kernel_equals_plain_with_global_memory_table(card):
     bins, rejected = dfa_flat.plan_flat_bins(
         [(0, 0, SMALL), (1, 3, SMALL[:3] + MID), (2, 3, HUGE)], max_slots=100000
@@ -118,31 +136,49 @@ def test_engine_window_on_card_equals_cpu(card):
     assert any(v.interrupted for v in on_card)
 
 
-def _finals_operands(card, t, lp, c, w, q, nf, gf, seed, density):
+def _finals_operands(card, t, length, c, w, nf, gf, seed, suffix_density):
+    """Seeded finals operands on the card: embed, suffix, lengths, and the
+    block tables (weights, descriptors with zero and positive n_lead and
+    anchored groups, column groups)."""
     rng = np.random.default_rng(seed)
-    embed = torch.as_tensor(rng.random((t, lp, c)) < 0.5, device=card)
-    weights = torch.as_tensor(
-        rng.choice(3, size=(w * c, nf), p=[1 - density, density / 2, density / 2]), device=card
-    ).to(torch.bfloat16)
-    gj = torch.as_tensor(rng.random((t, q, gf)) < 0.3, device=card)
-    return embed, weights, gj, rng.integers(0, gf, size=nf)
+    q = length + 2
+    ns = max(1, 2 * gf // 3)
+    embed = torch.as_tensor(rng.random((t, q + w - 1, c)) < 0.9, device=card)
+    # Segment-shaped columns: each window position adds 1 on two channels
+    # (2 on one), so a window reaches 2W only where all of them are set.
+    wk = np.zeros((w, c, nf), dtype=np.int64)
+    if c:
+        for ch in rng.integers(0, c, size=(2, w, nf)):
+            np.add.at(wk, (np.arange(w)[:, None], ch, np.arange(nf)[None, :]), 1)
+    weights = torch.as_tensor(wk.reshape(w * c, nf), device=card).to(torch.bfloat16)
+    suffix = torch.as_tensor(rng.random((t, q, ns)) < suffix_density, device=card)
+    lens = torch.as_tensor(rng.integers(0, length + 1, size=t).astype(np.int32), device=card)
+    desc = np.stack([rng.integers(0, ns, gf), rng.choice([0, 0, 1, 2], gf), rng.integers(1, 5, gf),
+                     (rng.random(gf) < 0.2).astype(np.int64)], axis=1)
+    desc[0, 1:] = (1, 2, 1)
+    tables = segment_finals.finals_tables(weights, desc, rng.integers(0, gf, size=nf), w=w)
+    return embed, suffix, lens, tables, q
 
 
 @pytest.mark.parametrize(
-    "t,length,c,w,nf,gf",
-    [(300, 60, 36, 26, 361, 307), (64, 200, 70, 5, 33, 6), (17, 9, 0, 3, 40, 5), (1, 4, 5, 1, 1, 1)],
-    ids=["crs-block", "two-words", "no-channel", "single"],
+    "t,length,c,w,nf,gf,sd",
+    [(300, 60, 36, 26, 361, 307, 0.05), (64, 200, 70, 5, 33, 6, 0.05), (17, 9, 0, 3, 40, 5, 0.3),
+     (1, 4, 5, 1, 1, 1, 0.5), (12288, 64, 41, 23, 117, 98, 0.002), (1024, 2048, 36, 26, 361, 307, 0.0005),
+     (4096, 64, 27, 19, 128, 118, 0.002)],
+    ids=["crs-block", "two-words", "no-channel", "single", "12288x64", "1024x2048", "4096x64"],
 )
-def test_finals_kernel_equals_plain(card, t, length, c, w, nf, gf):
-    q = length + 2
-    embed, weights, gj, cg = _finals_operands(
-        card, t, length + w + 1, c, w, q, nf, gf, seed=c + w, density=min(0.5, 2.0 / max(c, 1))
+def test_finals_kernel_equals_plain(card, t, length, c, w, nf, gf, sd):
+    embed, suffix, lens, tables, q = _finals_operands(
+        card, t, length, c, w, nf, gf, seed=c + w, suffix_density=sd
     )
     before = segment_finals.LAUNCHES
-    got = segment_finals.finals_match(embed, weights, gj, cg, w=w, q=q)
+    got = segment_finals.finals_match(embed, suffix, lens, tables, q=q)
     torch.cuda.synchronize()
     assert segment_finals.LAUNCHES == before + 1
-    assert torch.equal(got, segment_finals.finals_match_plain(embed, weights, gj, cg, w=w, q=q))
+    want = segment_finals.finals_match_plain(embed, suffix, lens, tables, q=q)
+    assert torch.equal(got, want)
+    if t >= 64 and c:
+        assert want.any() and not want.all()
 
 
 def test_blob_window_on_card_with_finals_equals_cpu(card, monkeypatch):

@@ -10,11 +10,15 @@ the compiler, and cover every table dtype class (int8, bf16, f32, and
 the dense-less S > 128 bank), a multi-pipeline flat bin, and B = 4096
 (the batch size where a one-hot matmul inside an XLA scan miscompiles).
 
-The CUDA kernels cannot run here; ``_emulate_kernel`` replays their
-algorithm in numpy over the exact arguments the wrappers pass them (the
-int16 per-group tables, offsets, pipeline index and class map), so the
-kernel-side layout is checked on the CPU too. The kernels themselves are
-held against the plain versions on the card by ``chip_smoke.py``.
+The CUDA kernels cannot run here; ``_emulate_kernel`` (dense and flat)
+and ``_emulate_gather_tier`` (the fused dfa-hot tier) replay their
+algorithms in numpy over the exact arguments the wrappers pass them (the
+int16 per-group tables, offsets, pipeline index, class maps and per-group
+records), so the kernel-side layout is checked on the CPU too. The fused
+tier's plain version is held bank by bank against the JAX package on
+several banks over distinct pipelines, under kind masks that skip some.
+The kernels themselves are held against the plain versions on the card by
+``chip_smoke.py``.
 """
 
 import random
@@ -102,27 +106,25 @@ def _batch(n, max_len, seed):
     return data, lens
 
 
-def _emulate_kernel(kt, dataT, lens, g, pipe=None, classmap=None, latch_end=True):
+def _emulate_kernel(kt, dataT, lens, g, pipe=None, latch_end=True):
     """numpy replay of ``csrc/dfa_scan.cu::dfa_scan_kernel`` on the wrapper's
     arguments: dataT [P, L, B] uint8, lens [P, B]; returns [B, G] bool."""
     tab_all = kt.tab.numpy().astype(np.int64)
     offs, sizes = kt.tab_off.numpy(), kt.n_states.numpy()
     mend_all, moffs = kt.mend.numpy().astype(bool), kt.mend_off.numpy()
     always = kt.always.numpy().astype(bool)
-    n_rows_tab = 256 if classmap is None else int(classmap.max()) + 1
     _, length, b = dataT.shape
     out = np.zeros((b, g), dtype=bool)
     for gi in range(g):
         s = int(sizes[gi])
-        tab = tab_all[offs[gi] : offs[gi] + n_rows_tab * s].reshape(n_rows_tab, s)
+        tab = tab_all[offs[gi] : offs[gi] + 256 * s].reshape(256, s)
         p = 0 if pipe is None else int(pipe[gi])
         ln = lens[p].astype(np.int64)
         state = np.zeros(b, dtype=np.int64)
         matched = np.zeros(b, dtype=bool)
         for t in range(length):
             byte = dataT[p, t].astype(np.int64)
-            row = byte if classmap is None else classmap[byte].astype(np.int64)
-            v = tab[row, state]
+            v = tab[byte, state]
             hit = v >= s
             active = t < ln
             matched |= hit & active
@@ -130,6 +132,41 @@ def _emulate_kernel(kt, dataT, lens, g, pipe=None, classmap=None, latch_end=True
         end_state = np.where(ln > length, 0, state) if latch_end else state
         mend = mend_all[moffs[gi] : moffs[gi] + s]
         out[:, gi] = matched | mend[end_state] | always[gi]
+    return out
+
+
+def _emulate_gather_tier(tier, inputs, on):
+    """numpy replay of ``csrc/dfa_scan.cu::gather_tier_kernel`` on the
+    tier's layout: per bank its pipeline slot's bytes through the bank's
+    class map, then per group a walk of its [C, S] table slice named by
+    ``bank_info`` and ``grp_info``; banks that are off give zeros. inputs
+    are numpy (data [B, L], lens [B]) per slot; returns [B, G] bool."""
+    tab = tier.tab.numpy().astype(np.int64)
+    on_g = tier.on_groups(tuple(on)).numpy().astype(bool)
+    mend, always = tier.mend.numpy().astype(bool), tier.always.numpy().astype(bool)
+    b = next(x for x in inputs if x is not None)[0].shape[0]
+    out = np.zeros((b, tier.n_groups), dtype=bool)
+    for k, (g0, ng, toff, telems, slot) in enumerate(tier.bank_info.tolist()):
+        if not on_g[g0 : g0 + ng].any():
+            continue
+        data, lens = inputs[slot]
+        length = data.shape[1]
+        cls = tier.cmaps.numpy()[k][data].astype(np.int64)  # one class per byte
+        n = np.minimum(lens, length)
+        for g in range(g0, g0 + ng):
+            off, s, moff = tier.grp_info[g].tolist()
+            c = telems // (ng * s)
+            table = tab[toff + off : toff + off + c * s].reshape(c, s)
+            state = np.zeros(b, dtype=np.int64)
+            matched = np.zeros(b, dtype=bool)
+            for t in range(length):
+                v = table[cls[:, t], state]
+                hit = v >= s
+                active = t < n
+                matched |= hit & active
+                state = np.where(active, v - s * hit, state)
+            end_state = np.where(lens > length, 0, state)
+            out[:, g] = matched | mend[moff + end_state] | always[g]
     return out
 
 
@@ -216,12 +253,7 @@ def test_gather_bank_matches_jax(specs):
     data, lens = _batch(96, 96, seed=11)
     got = tgather.scan_gather_bank(tbank, _t(data), _t(lens)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jgather.scan_gather_bank_jnp(jbank, data, lens)))
-    np.testing.assert_array_equal(
-        got,
-        _emulate_kernel(
-            tbank.kt, data.T[None], lens[None], tbank.n_groups, classmap=tbank.k_cls.numpy()
-        ),
-    )
+    np.testing.assert_array_equal(got, _emulate_gather_tier(tbank.tier, [(data, lens)], (True,)))
     d16, l16 = data[:24, :40], np.minimum(lens[:24], 40)
     pallas = scan_gather_bank_pallas(
         jbank.tC, jbank.classmap, jbank.match_end.T, jbank.always,
@@ -240,6 +272,61 @@ def test_gather_matches_jax_at_b4096():
     data, lens = _batch(4096, 20, seed=9)
     got = tgather.scan_gather_bank_jnp(tbank, _t(data), _t(lens)).numpy()
     np.testing.assert_array_equal(got, np.asarray(jgather.scan_gather_bank_jnp(jbank, data, lens)))
+
+
+# Three banks over pipelines 0, 3 and 0, a fourth over pipeline 5: the
+# fused tier reads three distinct inputs.
+_TIER_BANKS = [(0, PATTERNS[:3]), (3, PATTERNS[3:6]), (0, PATTERNS[6:] + MID[:1]), (5, PATTERNS[:2])]
+
+
+@pytest.mark.parametrize(
+    "on", [(True,) * 4, (True, False, True, False), (False, True, False, True), (False,) * 4],
+    ids=["all", "skip-odd", "skip-even", "none"],
+)
+def test_gather_tier_matches_jax_bank_by_bank(on):
+    pipes = {0: _batch(64, 48, seed=21), 3: _batch(64, 48, seed=22), 5: _batch(64, 48, seed=23)}
+    banks = [(pid, *_dfas(specs)) for pid, specs in _TIER_BANKS]
+    tbanks = [tgather.stack_gather_bank(td, device=CPU) for _, _, td in banks]
+    tier = tgather.build_gather_tier(tbanks, [pid for pid, _, _ in banks])
+    assert tier.pipelines == (0, 3, 5) and tier.pipe_slot == (0, 1, 0, 2)
+    assert tier.n_groups == sum(b.n_groups for b in tbanks)
+    # Slots no mask-on bank reads may be None (with every bank off, the
+    # inputs only give the batch shape).
+    read = {s for f, s in zip(on, tier.pipe_slot) if f} or set(range(len(tier.pipelines)))
+    inputs = [(_t(d), _t(ln)) if k in read else None
+              for k, (d, ln) in enumerate(pipes[p] for p in tier.pipelines)]
+    before = tgather.LAUNCHES
+    got = tgather.scan_gather_tier(tier, inputs, on).numpy()
+    assert tgather.LAUNCHES == before
+    np.testing.assert_array_equal(got, tgather.scan_gather_tier_plain(tier, inputs, on).numpy())
+    col = 0
+    for (pid, jd, _), tb, flag in zip(banks, tbanks, on):
+        piece = got[:, col : col + tb.n_groups]
+        col += tb.n_groups
+        if not flag:
+            assert not piece.any()
+            continue
+        want = np.asarray(jgather.scan_gather_bank_jnp(jgather.stack_gather_bank(jd), *pipes[pid]))
+        np.testing.assert_array_equal(piece, want)
+    np_inputs = [None if x is None else (x[0].numpy(), x[1].numpy()) for x in inputs]
+    np.testing.assert_array_equal(got, _emulate_gather_tier(tier, np_inputs, on))
+    # The per-group on/off flags are built once per mask value.
+    assert tier.on_groups(on) is tier.on_groups(tuple(on))
+
+
+def test_gather_tier_rejects_bad_inputs():
+    _, td = _dfas(PATTERNS)
+    bank = tgather.stack_gather_bank(td[:3], device=CPU)
+    tier = tgather.build_gather_tier([bank, bank], [0, 2])
+    d, ln = (_t(a) for a in _batch(8, 16, seed=1))
+    with pytest.raises(ValueError, match="inputs"):
+        tgather.scan_gather_tier(tier, [(d, ln)], (True, True))
+    with pytest.raises(ValueError, match="mask-on bank"):
+        tgather.scan_gather_tier(tier, [(d, ln), None], (True, True))
+    with pytest.raises(ValueError, match="differ"):
+        tgather.scan_gather_tier(tier, [(d, ln), (d[:, :8].contiguous(), ln)], (True, True))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tgather.scan_gather_tier(tier, [(d.to("meta"), ln.to("meta"))] * 2, (True, True))
 
 
 # ---------------------------------------------------------------------------
@@ -342,6 +429,9 @@ def test_cpu_dispatch_takes_plain_version_and_counts_no_launch():
     assert torch.equal(tdfa.scan_dfa_bank(dense, x, y), tdfa.scan_dfa_bank_take(dense, x, y))
     assert torch.equal(
         tgather.scan_gather_bank(gather, x, y), tgather.scan_gather_bank_jnp(gather, x, y)
+    )
+    assert torch.equal(
+        tgather.scan_gather_tier(gather.tier, [(x, y)], (True,)), tgather.scan_gather_bank_jnp(gather, x, y)
     )
     assert torch.equal(tflat.scan_flat_bank(flat, {0: (x, y)}), tflat.scan_flat_xla(flat, {0: (x, y)}))
     assert (tdfa.LAUNCHES, tgather.LAUNCHES, tflat.LAUNCHES) == before

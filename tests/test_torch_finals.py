@@ -5,15 +5,20 @@ replaces ``ops/segment_pallas.py::_finals_kernel``. On the CPU:
 
 - ``finals_match_plain`` is held against the JAX ``finals_match`` (the
   Pallas kernel in ``interpret=True`` mode) on seeded operands over
-  several channel counts, column counts and widths, with the reference's
-  one-hot ``sel`` and the port's ``col_group`` made to agree;
+  several channel counts, column counts and widths: the port takes the
+  suffix buffer and the group descriptors, the reference the ``gj`` and
+  one-hot ``sel`` that numpy builds from the same buffer and descriptors
+  (positive and zero ``n_lead``, anchored groups, lengths that cut the
+  window);
 - ``match_segment_block`` with ``CKO_PALLAS_FINALS=1`` is held against
   the JAX block with its Pallas tier forced on and against the knob off,
   including a block whose every conv column is a finals column and one
   with none;
-- ``_emulate_kernel`` replays the CUDA kernel's algorithm (bit packing,
-  weight bitplanes, early-exit thresholds) in numpy over the exact
-  operands the wrapper hands the kernel. The kernel itself is held
+- ``_emulate_kernel`` replays the CUDA kernel's algorithm (suffix column
+  masks, reach masks, embed words, the set-bit walk with early exit, the
+  window-start tiles) in numpy over the exact operands the wrapper hands
+  the kernel; with the tier on the block builds no per-group rows and
+  keeps its constant operands. The kernel itself is held
   against the plain version on the card (``chip_smoke.py``,
   ``tests/test_torch_cuda.py``).
 
@@ -94,64 +99,142 @@ def _blocks(patterns):
 
 
 def _torch_hits(tb, data, lens):
-    return tseg.match_segment_block(tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens)).numpy()
+    return tseg.match_segment_block(
+        tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens), cache=tb.finals
+    ).numpy()
 
 
-def _operands(rng, t, lp, c, w, q, nf, gf, density):
-    embed = (rng.random((t, lp, c)) < 0.5).astype(np.float32)
+def _descs(rng, gf, ns):
+    """Group descriptors (suffix column, n_lead, n_real, a_start): zero and
+    positive n_lead, anchored groups (one reachable at p = 0, one never),
+    several groups per suffix column."""
+    desc = np.stack(
+        [rng.integers(0, ns, gf), rng.choice([0, 0, 1, 2, 3], gf), rng.integers(1, 5, gf),
+         (rng.random(gf) < 0.25).astype(np.int64)], axis=1,
+    )
+    desc[0, 1:] = (0, 1, 0)
+    desc[1 % gf, 1:] = (2, 3, 0)
+    desc[2 % gf, 1:] = (1, 2, 1)  # anchored: reachable at window start 0 only
+    return desc
+
+
+def _operands(rng, t, length, c, w, nf, gf, density, q=None):
+    """Seeded finals operands: embed [T, Lp, C], weights [W*C, Nf], suffix
+    [T, Q, NS], descriptors, col_group and lengths that cut the window."""
+    q = length + 2 if q is None else q
+    ns = max(1, 2 * gf // 3)
+    embed = (rng.random((t, q + w - 1 + 2, c)) < 0.5).astype(np.float32)
     weights = rng.choice(3, size=(w * c, nf), p=[1 - density, density / 2, density / 2]).astype(np.float32)
-    gj = (rng.random((t, q, gf)) < 0.3).astype(np.float32)
+    suffix = (rng.random((t, q, ns)) < 0.3).astype(np.float32)
     col_group = np.concatenate([np.arange(gf), rng.integers(0, gf, size=nf - gf)])
     rng.shuffle(col_group)
-    return embed, weights, gj, col_group
+    lens = rng.integers(0, length + 1, size=t).astype(np.int32)
+    lens[:2] = length
+    return embed, weights, suffix, _descs(rng, gf, ns), col_group, lens
 
 
-def _emulate_kernel(e, wk, g, cg, w, q):
-    """numpy replay of ``csrc/segment_finals.cu`` (pack_embed, pack_weights,
-    finals_kernel) on the wrapper's operands: e [T, Lp, C] u8, wk [W*C, Nf]
-    u8, g [T, Q, Gf] u8, cg [Nf] i32; returns [T, Nf] bool."""
+def _gj_numpy(suffix, lens, desc, q):
+    """gj [T, Q, Gf] from the definition: G(t, r) at r = p + n_lead."""
+    t = suffix.shape[0]
+    gj = np.zeros((t, q, len(desc)), dtype=bool)
+    for k, (col, nl, nr, a) in enumerate(desc):
+        for p in range(q):
+            r = p + nl
+            if r < 1 or r + nr >= q or (a and r != 1):
+                continue
+            gj[:, p, k] = (r + nr <= 1 + lens) & (suffix[:, r + nr, col] != 0)
+    return gj
+
+
+def _tables(weights, desc, col_group, w):
+    return tfin.finals_tables(torch.as_tensor(weights), desc, col_group, w=w)
+
+
+def _range_bits(lo, hi):
+    lo, hi = max(lo, 0), min(hi, 31)
+    return 0 if lo > hi else ((1 << (hi + 1)) - 1) & ~((1 << lo) - 1)
+
+
+def _emulate_kernel(e, s, lens, tables, q, qt):
+    """numpy replay of ``csrc/segment_finals.cu::finals_kernel`` on the
+    wrapper's operands (e [T, Lp, C] u8, s [T, Q, NS] u8, lens, the
+    block's tables) with window-start tile ``qt``: per row and tile the
+    suffix column masks, the groups' reach masks (word shifts and valid
+    ranges), the embed words, then the set-bit walk with early exit.
+    Returns ([T, Nf] bool, rows whose every tile stopped before scoring)."""
     t, lp, c = e.shape
-    nf = wk.shape[1]
-    nw = (c + 63) // 64
-    words = np.zeros((t, lp, nw), dtype=np.uint64)
-    k1 = np.zeros((w, nw, nf), dtype=np.uint64)
-    k2 = np.zeros((w, nw, nf), dtype=np.uint64)
-    v = wk.reshape(w, c, nf).astype(np.int64)
-    for ci in range(c):
-        sh = np.uint64(ci % 64)
-        words[:, :, ci // 64] |= (e[:, :, ci] != 0).astype(np.uint64) << sh
-        k1[:, ci // 64] |= (v[:, ci] & 1).astype(np.uint64) << sh
-        k2[:, ci // 64] |= ((v[:, ci] >> 1) & 1).astype(np.uint64) << sh
-    maxc = ((v & 1) + 2 * ((v >> 1) & 1)).sum(axis=1)  # [W, Nf]
-    rest = np.concatenate([np.cumsum(maxc[::-1], axis=0)[::-1][1:], np.zeros((1, nf), np.int64)])
-    thr = 2 * w - rest  # [W, Nf]: least partial sum after positions 0..j
-    assert (thr[-1] == 2 * w).all()
-    reach = g[:, :, cg.astype(np.int64)] != 0  # [T, Q, Nf]
-    hit = np.zeros((t, nf), dtype=bool)
-    for p in range(q):
-        alive = reach[:, p] & ~hit
-        s = np.zeros((t, nf), dtype=np.int64)
-        for j in range(w):
-            ew = words[:, p + j][:, :, None]  # [T, nw, 1]
-            contrib = (np.bitwise_count(ew & k1[j][None]) + 2 * np.bitwise_count(ew & k2[j][None])).sum(axis=1)
-            s += np.where(alive, contrib.astype(np.int64), 0)
-            alive &= s >= thr[j][None]
-        hit |= alive
-    return hit
+    ns = s.shape[2]
+    w, nf, d_max = tables.w, tables.nf, tables.d_max
+    desc, cg = tables.desc.tolist(), tables.col_group.tolist()
+    kb, thr = tables.kbits.numpy().view(np.uint64), tables.thr.numpy()
+    nw, qw, cw = (c + 63) // 64, qt // 32, (qt + d_max + 31) // 32
+    out = np.zeros((t, nf), dtype=bool)
+    unscored = []
+    for r in range(t):
+        q_end = min(q, max(0, int(lens[r]) + 2))
+        scored = False
+        for p0 in range(0, q_end, qt):
+            pend = min(q_end, p0 + cw * 32)
+            cm = [[0] * cw for _ in range(ns)]
+            for pp in range(pend - p0):
+                for col in np.flatnonzero(s[r, p0 + pp]):
+                    cm[col][pp >> 5] |= 1 << (pp & 31)
+            if not any(any(x) for x in cm):
+                continue
+            gm = [[0] * qw for _ in range(len(desc))]
+            for k, (col, nl, nr, a) in enumerate(desc):
+                for wd in range(qw):
+                    o = wd * 32 + nl + nr
+                    lo, sh = o >> 5, o & 31
+                    m = 0
+                    if lo < cw:
+                        m = cm[col][lo] >> sh
+                        if sh and lo + 1 < cw:
+                            m |= (cm[col][lo + 1] << (32 - sh)) & 0xFFFFFFFF
+                    pbase = p0 + wd * 32
+                    gm[k][wd] = m & _range_bits(max(0, 1 - nl) - pbase, (1 - nl if a else q - 1) - pbase)
+            if not any(any(x) for x in gm):
+                continue
+            scored = True
+            ep = min(lp - p0, qt + w - 1)
+            words = np.zeros((ep, nw), dtype=np.uint64)
+            for ci in range(c):
+                words[:, ci // 64] |= (e[r, p0 : p0 + ep, ci] != 0).astype(np.uint64) << np.uint64(ci % 64)
+            for n in range(nf):
+                for wd in range(qw):
+                    m = gm[cg[n]][wd]
+                    while m and not out[r, n]:
+                        pl = wd * 32 + (m & -m).bit_length() - 1
+                        m &= m - 1
+                        acc, j = 0, 0
+                        while j < w:
+                            ew = words[pl + j]
+                            acc += int(np.bitwise_count(ew & kb[n, j, :, 0]).sum())
+                            acc += 2 * int(np.bitwise_count(ew & kb[n, j, :, 1]).sum())
+                            if acc < thr[n, j]:
+                                break
+                            j += 1
+                        out[r, n] = j == w
+        if not scored:
+            unscored.append(r)
+    return out, unscored
 
 
 @pytest.mark.parametrize(
     "t,length,c,w,nf,gf",
-    [(8, 6, 5, 3, 7, 4), (16, 10, 36, 4, 40, 9), (8, 5, 70, 2, 12, 12)],
-    ids=["c5", "c36", "c70"],
+    [(8, 6, 5, 3, 7, 4), (16, 10, 36, 4, 40, 9), (8, 5, 70, 2, 12, 12), (16, 30, 41, 3, 24, 10)],
+    ids=["c5", "c36", "c70", "c41"],
 )
 def test_plain_matches_jax_pallas_interpret(t, length, c, w, nf, gf):
     rng = np.random.default_rng(c)
     q = length + 2
-    embed, weights, gj, col_group = _operands(rng, t, 1 + length + w, c, w, q, nf, gf, 0.25)
+    embed, weights, suffix, desc, col_group, lens = _operands(rng, t, length, c, w, nf, gf, 0.25)
+    # The reference's operands from the same suffix buffer and descriptors:
+    # gj [T, Q, Gf] and the one-hot sel [Gf, Nf].
+    gj = _gj_numpy(suffix, lens, desc, q)
+    assert gj.any() and not gj.all()
     sel = np.zeros((gf, nf), dtype=np.float32)
     sel[col_group, np.arange(nf)] = 1.0
-    # The reference's one-hot form and the port's index form agree.
     assert (sel.sum(axis=0) == 1).all()
     np.testing.assert_array_equal(sel.argmax(axis=0), col_group)
     want = np.asarray(
@@ -160,36 +243,46 @@ def test_plain_matches_jax_pallas_interpret(t, length, c, w, nf, gf):
             jnp.asarray(gj, jnp.bfloat16), sel, w=w, q=q, interpret=True,
         )
     )
-    got = tfin.finals_match_plain(
-        torch.as_tensor(embed), torch.as_tensor(weights), torch.as_tensor(gj), col_group, w=w, q=q
-    ).numpy()
+    tables = _tables(weights, desc, col_group, w)
+    args = (torch.as_tensor(embed), torch.as_tensor(suffix), torch.as_tensor(lens))
+    np.testing.assert_array_equal(tfin.reach(args[1], args[2], tables, q).numpy(), gj)
+    got = tfin.finals_match_plain(*args, tables, q=q).numpy()
     np.testing.assert_array_equal(got, want)
     assert got.any() and not got.all()
     # The CPU dispatch is the plain version and counts no launch.
     before = tfin.LAUNCHES
     np.testing.assert_array_equal(
-        tfin.finals_match(
-            torch.as_tensor(embed).bool(), torch.as_tensor(weights).to(torch.uint8),
-            torch.as_tensor(gj).bool(), col_group, w=w, q=q,
-        ).numpy(),
-        want,
+        tfin.finals_match(args[0].bool(), args[1].bool(), args[2], tables, q=q).numpy(), want
     )
     assert tfin.LAUNCHES == before
 
 
-@pytest.mark.parametrize("c", [36, 70], ids=["one-word", "two-words"])
-def test_kernel_emulation_matches_plain(c):
-    rng = np.random.default_rng(100 + c)
-    t, length, w, nf, gf = 12, 14, 5, 33, 6
+@pytest.mark.parametrize(
+    "c,length", [(36, 64), (70, 64), (36, 598)], ids=["one-word", "two-words", "two-tiles"]
+)
+def test_kernel_emulation_matches_plain(c, length):
+    """The kernel's algorithm at Q = 66 (one tile) and Q = 600 (two tiles
+    of 512), with rows whose suffix bytes are all zero."""
+    rng = np.random.default_rng(100 + c + length)
+    t, w, nf, gf = 12, 5, 33, 6
     q = length + 2
-    ops = _operands(rng, t, 1 + length + w + 2, c, w, q, nf, gf, 2.0 / c)
-    embed, weights, gj = (torch.as_tensor(a) for a in ops[:3])
-    want = tfin.finals_match_plain(embed, weights, gj, ops[3], w=w, q=q).numpy()
-    e, wk, g, cgt = tfin.kernel_operands(embed, weights, gj, ops[3], w=w, q=q)
-    assert (e.dtype, wk.dtype, g.dtype, cgt.dtype) == (torch.uint8,) * 3 + (torch.int32,)
-    got = _emulate_kernel(e.numpy(), wk.numpy(), g.numpy(), cgt.numpy(), w, q)
+    embed, weights, suffix, desc, col_group, lens = _operands(rng, t, length, c, w, nf, gf, 2.0 / c)
+    suffix[2:4] = 0  # rows with no reachable group
+    tables = _tables(weights, desc, col_group, w)
+    assert tables.d_max == int((desc[:, 1] + desc[:, 2]).max())
+    # The kernel reads the tables' memory as laid out row-major.
+    assert all(x.is_contiguous() for x in (tables.kbits, tables.thr, tables.desc, tables.col_group))
+    args = (torch.as_tensor(embed), torch.as_tensor(suffix), torch.as_tensor(lens))
+    want = tfin.finals_match_plain(*args, tables, q=q).numpy()
+    qt = tfin.q_tile(q, tables, suffix.shape[2])
+    assert qt == (96 if q <= 96 else tfin.Q_TILE_MAX) and (q > qt) == (length > 500)
+    e, s = tfin._bytes(args[0]), tfin._bytes(args[1])
+    got, unscored = _emulate_kernel(e.numpy(), s.numpy(), lens, tables, q, qt)
     np.testing.assert_array_equal(got, want)
     assert got.any() and not got.all()
+    assert {2, 3} <= set(unscored)
+    # A smaller tile gives the same bits (tiles cut the window starts only).
+    np.testing.assert_array_equal(_emulate_kernel(e.numpy(), s.numpy(), lens, tables, q, 32)[0], want)
 
 
 def test_kernel_emulation_on_a_block(monkeypatch):
@@ -197,15 +290,46 @@ def test_kernel_emulation_on_a_block(monkeypatch):
     through the kernel's algorithm, give the conv path's finals columns."""
     _, tb = _blocks(MIXED)
     data, lens = _rows(24, 48, seed=4)
-    embed, weights, gj, col_group, w, q = tseg.finals_inputs(
-        tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens)
+    embed, suffix, lengths, tables, q = tseg.finals_inputs(
+        tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens), cache=tb.finals
     )
+    w = tb.spec.w
     assert embed.dtype == torch.bool and tuple(embed.shape) == (24, 1 + 48 + w, len(tb.spec.channels))
-    assert weights.shape[1] == tseg.finals_cols(tb.spec) == len(col_group)
-    want = tfin.finals_match_plain(embed, weights, gj, col_group, w=w, q=q).numpy()
-    e, wk, g, cgt = tfin.kernel_operands(embed, weights, gj, col_group, w=w, q=q)
-    np.testing.assert_array_equal(_emulate_kernel(e.numpy(), wk.numpy(), g.numpy(), cgt.numpy(), w, q), want)
+    assert suffix.dtype == torch.bool and tuple(suffix.shape[:2]) == (24, q)
+    assert tables.nf == tseg.finals_cols(tb.spec) and tables.gf <= tables.nf
+    assert tables.weights.shape == (w * len(tb.spec.channels), tables.nf)
+    want = tfin.finals_match_plain(embed, suffix, lengths, tables, q=q).numpy()
+    got, _ = _emulate_kernel(
+        tfin._bytes(embed).numpy(), tfin._bytes(suffix).numpy(), lengths.numpy(), tables, q,
+        tfin.q_tile(q, tables, suffix.shape[2]),
+    )
+    np.testing.assert_array_equal(got, want)
     assert want.any()
+
+
+def test_tier_on_builds_no_group_rows_and_caches_tables(monkeypatch):
+    """With the tier on the block's path never calls ``group_reach`` (no
+    per-group rows, no [T, Q, Gf] stack): the kernel's operands are the
+    suffix buffer and the block's cached tables, built once."""
+    _, tb = _blocks(MIXED)
+    data, lens = _rows(16, 40, seed=9)
+    d, ln = torch.as_tensor(data), torch.as_tensor(lens)
+    monkeypatch.delenv("CKO_PALLAS_FINALS", raising=False)
+    off = tseg.match_segment_block(tb.kernel, tb.spec, d, ln, cache=tb.finals).numpy()
+    assert not tb.finals
+    monkeypatch.setenv("CKO_PALLAS_FINALS", "1")
+    monkeypatch.setattr(tseg, "group_reach", lambda *a: pytest.fail("group rows built with the tier on"))
+    built, seen = [], []
+    real_tables, real_match = tseg.finals_tables, tseg.finals_match
+    monkeypatch.setattr(tseg, "finals_tables", lambda *a, **k: built.append(1) or real_tables(*a, **k))
+    monkeypatch.setattr(tseg, "finals_match", lambda *a, **k: seen.append(a) or real_match(*a, **k))
+    for _ in range(2):
+        on = tseg.match_segment_block(tb.kernel, tb.spec, d, ln, cache=tb.finals).numpy()
+        np.testing.assert_array_equal(on, off)
+    assert len(built) == 1 and list(tb.finals) == [CPU]
+    assert seen[0][3] is seen[1][3] is tb.finals[CPU]
+    suffix = seen[0][1]
+    assert suffix.shape[2] == int(tb.finals[CPU].desc_np[:, 0].max()) + 1 < tb.finals[CPU].gf
 
 
 @pytest.mark.parametrize("patterns", [MIXED, ALL_FINALS, NO_FINALS], ids=["mixed", "all-finals", "no-finals"])
@@ -236,21 +360,26 @@ def test_block_with_knob_on_matches_jax_and_knob_off(monkeypatch, patterns):
     finally:
         jax.clear_caches()
     np.testing.assert_array_equal(on, want)
-    assert (tseg.finals_inputs(tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens)) is None) == (
+    assert (tseg.finals_inputs(tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens),
+                               cache=tb.finals) is None) == (
         n_finals == 0
     )
 
 
 def test_wrapper_rejects_bad_operands():
     rng = np.random.default_rng(0)
-    ops = _operands(rng, 4, 10, 6, 3, 8, 5, 3, 0.3)
-    embed, weights, gj = (torch.as_tensor(a) for a in ops[:3])
-    cg = ops[3]
-    with pytest.raises(ValueError, match="W\\*C"):
-        tfin.finals_match(embed, weights[:-1], gj, cg, w=3, q=8)
+    embed, weights, suffix, desc, cg, lens = _operands(rng, 4, 6, 6, 3, 5, 3, 0.3)
+    tables = _tables(weights, desc, cg, 3)
+    e, s, ln = (torch.as_tensor(a) for a in (embed, suffix, lens))
+    with pytest.raises(ValueError, match="W = 3"):
+        _tables(weights[:-1], desc, cg, 3)
+    with pytest.raises(ValueError, match="channels"):
+        tfin.finals_match(e[:, :, :-1], s, ln, tables, q=8)
     with pytest.raises(ValueError, match="Q \\+ W - 1"):
-        tfin.finals_match(embed[:, :8], weights, gj[:, :7], cg, w=3, q=7)
+        tfin.finals_match(e[:, :8], s[:, :7], ln, tables, q=7)
     with pytest.raises(ValueError, match="outside"):
-        tfin.finals_match(embed, weights, gj, np.full(5, 3), w=3, q=8)
+        _tables(weights, desc, np.full(5, 3), 3)
+    with pytest.raises(ValueError, match="suffix column"):
+        tfin.finals_match(e, s[:, :, :1], ln, _tables(weights, np.maximum(desc, [1, 0, 0, 0]), cg, 3), q=8)
     with pytest.raises(ValueError, match="unsupported device"):
-        tfin.finals_match(embed.to("meta"), weights.to("meta"), gj.to("meta"), cg, w=3, q=8)
+        tfin.finals_match(e.to("meta"), s.to("meta"), ln.to("meta"), tables, q=8)

@@ -144,10 +144,13 @@ def test_model_from_arrays_round_trip(crs_lite_models):
     assert carried.device == CPU
     _assert_same(model_to_arrays(carried), model_to_arrays(tm))
     _assert_dtypes(carried, jm)
-    for bank, ref in zip(carried.flat_banks + carried.gather_banks + carried.pre_banks,
-                         tm.flat_banks + tm.gather_banks + tm.pre_banks):
+    for bank, ref in zip(carried.flat_banks + carried.pre_banks, tm.flat_banks + tm.pre_banks):
         for f in ("tab", "tab_off", "n_states", "mend", "mend_off", "always"):
             assert torch.equal(getattr(bank.kt, f), getattr(ref.kt, f)), f
+    # The fused dfa-hot tier is laid out the same from carried tables.
+    for f in ("tab", "bank_info", "grp_info", "mend", "always", "cmaps"):
+        assert torch.equal(getattr(carried.gather_tier, f), getattr(tm.gather_tier, f)), f
+    assert carried.gather_tier.pipelines == tm.gather_tier.pipelines
 
 
 @pytest.fixture(scope="module")

@@ -74,7 +74,9 @@ def _jax_hits(kernel, spec, data, lens):
 
 
 def _torch_hits(block, data, lens):
-    out = tseg.match_segment_block(block.kernel, block.spec, torch.as_tensor(data), torch.as_tensor(lens))
+    out = tseg.match_segment_block(
+        block.kernel, block.spec, torch.as_tensor(data), torch.as_tensor(lens), cache=block.finals
+    )
     assert out.dtype == torch.bool
     return out.numpy()
 
@@ -169,11 +171,11 @@ def test_finals_kernel_knob_raises(monkeypatch):
     assert os.environ["CKO_PALLAS_FINALS"] == "1"
     seen = []
     real = tseg.finals_match
-    monkeypatch.setattr(tseg, "finals_match", lambda *a, **k: seen.append(a[1].shape) or real(*a, **k))
+    monkeypatch.setattr(tseg, "finals_match", lambda *a, **k: seen.append(a[3].weights.shape) or real(*a, **k))
     np.testing.assert_array_equal(_torch_hits(tb, data, lens), want)
     assert seen == [(tb.spec.w * len(tb.spec.channels), tseg.finals_cols(tb.spec))]
-    embed, weights, gj, col_group, w, q = tseg.finals_inputs(
-        tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens)
+    embed, suffix, lengths, tables, q = tseg.finals_inputs(
+        tb.kernel, tb.spec, torch.as_tensor(data), torch.as_tensor(lens), cache=tb.finals
     )
     with pytest.raises(ValueError, match="unsupported device"):
-        real(embed.to("meta"), weights.to("meta"), gj.to("meta"), col_group, w=w, q=q)
+        real(embed.to("meta"), suffix.to("meta"), lengths.to("meta"), tables, q=q)
