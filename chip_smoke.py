@@ -12,7 +12,8 @@ failure exits non-zero; no phase is caught):
 2. one phase per kernel at the main path's tier shapes (B x L = 12288 x
    64, 1024 x 2048) and at B = 4096, on seeded random bytes: the scan
    kernels on crs-lite's banks (the flat bin, all dfa-hot gather banks in
-   one fused launch, the prefilter banks), the finals kernel on every
+   one fused launch, all prefilter banks in one fused launch over
+   ``model.pre_tier``), the finals kernel on every
    crs-lite segment block with finals columns, its operands taken from the
    block's own chain program (``ops/segment.py::finals_inputs``). Each
    kernel's output must be bit-equal to its plain version's on the card.
@@ -25,7 +26,8 @@ failure exits non-zero; no phase is caught):
 4. the slice-2 path: the same 4096 requests as one blob through
    ``prepare_blob`` + ``collect`` on the native tiered path with
    ``CKO_PALLAS_FINALS=1``: verdicts equal to phase 3's, all four kernels
-   launched, at most one fused gather launch per tier; the p50 window
+   launched, at most one fused gather launch and one fused dense launch
+   per tier; the p50 window
    with the finals tier on and off (fresh windows, in turns) and the p50
    native assemble time; then ``evaluate_phased`` and
    ``evaluate_response`` against the CPU engine and
@@ -251,60 +253,57 @@ def main() -> int:
     deferred = []
 
     def scan_case(name, banks, b, length, rng):
-        """Per launch: (kernel call, plain call, bytes moved, lookups)."""
-        if name == "gather":
-            # All dfa-hot banks in one fused launch, one input per pipeline.
-            tier = model.gather_tier
+        """Per call: (kernel call, plain call, bytes moved, lookups). The
+        bytes are what the function needs: each pipeline's rows once (on
+        crs-lite's prefilter tier, six banks over six pipelines, that is
+        once per bank), the tables and records once, and the output once."""
+        if name in ("gather", "dense"):
+            # All banks of the tier in one fused launch, one input per pipeline.
+            tier = model.gather_tier if name == "gather" else model.pre_tier
+            scan, plain = ((dfa_gather.scan_gather_tier, dfa_gather.scan_gather_tier_plain)
+                           if name == "gather" else (dfa.scan_dense_tier, dfa.scan_dense_tier_plain))
             ins = [random_rows(rng, b, length) for _ in tier.pipelines]
             tens = [(torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)) for d, l in ins]
             on = (True,) * len(tier.banks)
-            # Per active byte: one class lookup per bank, one table lookup
-            # per group.
-            steps = sum(int(np.minimum(ins[slot][1], length).sum()) * (bk.n_groups + 1)
+            # Per active byte: one table lookup per group (and, for gather,
+            # one class lookup per bank).
+            per_bank = 1 if name == "gather" else 0
+            steps = sum(int(np.minimum(ins[slot][1], length).sum()) * (bk.n_groups + per_bank)
                         for bk, slot in zip(tier.banks, tier.pipe_slot))
             nbytes = (sum(d.nbytes + l.nbytes for d, l in ins) + 2 * tier.tab.numel()
-                      + tier.cmaps.numel() + 4 * (tier.bank_info.numel() + tier.grp_info.numel())
+                      + 4 * (tier.grp_info.numel() + sum(r.numel() for _base, r in tier.launches))
                       + tier.mend.numel() + tier.n_groups + b * tier.n_groups)
-            return [(lambda x=tens: dfa_gather.scan_gather_tier(tier, x, on),
-                     lambda x=tens: dfa_gather.scan_gather_tier_plain(tier, x, on),
+            if name == "gather":
+                nbytes += tier.cmaps.numel()
+            return [(lambda x=tens: scan(tier, x, on), lambda x=tens: plain(tier, x, on),
                      nbytes, steps)]
         cases = []
-        for bank in banks:
-            if name == "flat":
-                pids = bank.pipeline_ids
-                ins = {p: random_rows(rng, b, length) for p in pids}
-                tens = {p: (torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev))
-                        for p, (d, l) in ins.items()}
-                steps = sum(int(np.minimum(ins[p][1], length).sum()) for p in bank.group_pipe)
-                nbytes = sum(d.nbytes + l.nbytes for d, l in ins.values())
-                kt, g = bank.kt, bank.n_groups
-                cases.append((lambda bk=bank, x=tens: dfa_flat.scan_flat_bank(bk, x),
-                              lambda bk=bank, x=tens: dfa_flat.scan_flat_xla(bk, x),
-                              nbytes + kt.tab.numel() * 2 + kt.mend.numel() + b * g,
-                              steps))
-                continue
-            d, l = random_rows(rng, b, length)
-            dt, lt = torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev)
-            g = bank.n_groups
-            # Per active byte: one table lookup per group.
-            steps = int(np.minimum(l, length).sum()) * g
-            nbytes = d.nbytes + l.nbytes + bank.kt.tab.numel() * 2 + bank.kt.mend.numel() + b * g
-            cases.append((lambda bk=bank, x=dt, y=lt: dfa.scan_dfa_bank(bk, x, y),
-                          lambda bk=bank, x=dt, y=lt: dfa.scan_dfa_bank_take(bk, x, y),
-                          nbytes, steps))
+        for bank in banks:  # the flat bins
+            pids = bank.pipeline_ids
+            ins = {p: random_rows(rng, b, length) for p in pids}
+            tens = {p: (torch.as_tensor(d, device=dev), torch.as_tensor(l, device=dev))
+                    for p, (d, l) in ins.items()}
+            steps = sum(int(np.minimum(ins[p][1], length).sum()) for p in bank.group_pipe)
+            nbytes = sum(d.nbytes + l.nbytes for d, l in ins.values())
+            lay, g = bank.layout, bank.n_groups
+            cases.append((lambda bk=bank, x=tens: dfa_flat.scan_flat_bank(bk, x),
+                          lambda bk=bank, x=tens: dfa_flat.scan_flat_xla(bk, x),
+                          nbytes + lay.tab.numel() * 2 + lay.grp_info.numel() * 4
+                          + lay.mend.numel() + g + b * g,
+                          steps))
         return cases
 
     # (name, short, module, banks, source, replaces, device kernel name)
     kernel_defs = [
         ("cko_scan_flat", "flat", dfa_flat, model.flat_banks,
          f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_flat.py:439",
-         "dfa_scan_kernel"),
+         "flat_kernel"),
         ("cko_scan_gather", "gather", dfa_gather, model.gather_banks,
          f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_gather_pallas.py:46",
          "gather_tier_kernel"),
         ("cko_scan_dense", "dense", dfa, model.pre_banks,
          f"{PKG}/csrc/dfa_scan.cu", "coraza_kubernetes_operator_tpu/ops/dfa_pallas.py:52",
-         "dfa_scan_kernel"),
+         "dense_tier_kernel"),
     ]
     table = {}
     for kname, short, _mod, banks, src, replaces, dev_name in kernel_defs:
@@ -515,8 +514,9 @@ def main() -> int:
         f"kernel launches {launches}")
     if not all(launches.values()):
         raise SystemExit(f"a kernel of the slice-2 path was not launched: {launches}")
-    if launches["cko_scan_gather"] > len(tier_widths):
-        raise SystemExit(f"{launches['cko_scan_gather']} gather launches for {len(tier_widths)} tiers")
+    for k in ("cko_scan_gather", "cko_scan_dense"):
+        if launches[k] > len(tier_widths):
+            raise SystemExit(f"{launches[k]} {k} launches for {len(tier_widths)} tiers")
     if not inflight.arena_lease._released:
         raise SystemExit("collect did not release the window's arena lease")
     differ(verdicts4, verdicts, "phase 4 against phase 3")
@@ -599,8 +599,8 @@ def main() -> int:
     if args.probe_profiler:
         probe(f"after phase 5's {len(deferred)} profiler sessions", 500)
 
-    # One profiled finals-on blob window: launches, device busy time, the
-    # two redesigned kernels' events, and no [T, Q, Gf] stack of group rows.
+    # One profiled finals-on blob window: launches, device busy time, each
+    # scan and finals kernel's events, and no [T, Q, Gf] stack of group rows.
     from torch.profiler import ProfilerActivity, profile
 
     gfs = {t.gf for s_ in model.segs for t in s_.finals.values()} | {
@@ -626,7 +626,7 @@ def main() -> int:
     n_launch = sum(e.count for e in kernel_events)
     mine = {name: (sum(e.count for e in kernel_events if name in e.key),
                    sum(e.self_device_time_total for e in kernel_events if name in e.key) / 1e3)
-            for name in ("finals_kernel", "gather_tier_kernel", "dfa_scan_kernel")}
+            for name in ("finals_kernel", "gather_tier_kernel", "dense_tier_kernel", "flat_kernel")}
     stacks = watch.count
     log(f"phase 4: profiled blob window (finals on): {wall_ms:.1f} ms wall (profiler on), "
         f"assemble {inflight.assemble_s * 1e3:.1f} ms, device busy {device_ms:.3f} ms in "

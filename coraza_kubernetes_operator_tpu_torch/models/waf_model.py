@@ -43,7 +43,7 @@ from ..compiler.ruleset import (
     LINK_STRING,
 )
 from ..compiler.segments import plan_segments
-from ..ops.dfa import DFABank, scan_dfa_bank, stack_dfas
+from ..ops.dfa import DenseTier, DFABank, build_dense_tier, scan_dense_tier, scan_dfa_bank, stack_dfas
 from ..ops.dfa_flat import build_flat_bank, plan_flat_bins, scan_flat_bank
 from ..ops.dfa_gather import (
     GatherBank,
@@ -162,8 +162,10 @@ class WafModel:
     numvar_col: torch.Tensor | None = field(default=None, init=False, repr=False)
     counter_col: torch.Tensor | None = field(default=None, init=False, repr=False)
     long_col: torch.Tensor | None = field(default=None, init=False, repr=False)
-    # Every gather bank laid out for one fused launch per tier.
+    # Every gather bank, and every prefilter bank, laid out for one fused
+    # launch per tier.
     gather_tier: GatherTier | None = field(default=None, init=False, repr=False, compare=False)
+    pre_tier: DenseTier | None = field(default=None, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         self.numvar_col = self.e_numvar.argmax(dim=0)
@@ -173,6 +175,8 @@ class WafModel:
             self.long_col = self.seg_perm.to(torch.int32).argmax(dim=0)
         if self.gather_banks:
             self.gather_tier = build_gather_tier(self.gather_banks, self.gather_bank_pipelines)
+        if self.pre_banks:
+            self.pre_tier = build_dense_tier(self.pre_banks, self.pre_bank_pipelines)
 
     @property
     def device(self) -> torch.device:
@@ -670,22 +674,27 @@ def match_tier(
         else:
             per_block.append(scan_dfa_bank(bank, *transformed_for(pid)))
     n_banks = len(model.banks)
+
+    def fused_tier(scan, tier, on) -> torch.Tensor:
+        """``scan`` over a fused tier, transforming only the pipelines a
+        mask-on bank reads."""
+        if not any(on):
+            return zeros(tier.n_groups)
+        read = {slot for slot, flag in zip(tier.pipe_slot, on) if flag}
+        inputs = [transformed_for(pid) if k in read else None for k, pid in enumerate(tier.pipelines)]
+        return scan(tier, inputs, on)
+
     gt = model.gather_tier
     if gt is not None:
         # Every gather bank in one launch; mask-off banks give zeros.
         on = tuple(block_on(n_segs + n_banks + gi) for gi in range(len(gt.banks)))
-        if any(on):
-            read = {slot for slot, flag in zip(gt.pipe_slot, on) if flag}
-            inputs = [transformed_for(pid) if k in read else None for k, pid in enumerate(gt.pipelines)]
-            per_block.append(scan_gather_tier(gt, inputs, on))
-        else:
-            per_block.append(zeros(gt.n_groups))
+        per_block.append(fused_tier(scan_gather_tier, gt, on))
     n_gather = len(model.gather_banks)
-    for pi, (pb, pid) in enumerate(zip(model.pre_banks, model.pre_bank_pipelines)):
-        if not block_on(n_segs + n_banks + n_gather + pi):
-            per_block.append(zeros(pb.n_groups))
-        else:
-            per_block.append(scan_dfa_bank(pb, *transformed_for(pid)))
+    pt = model.pre_tier
+    if pt is not None:
+        # Every prefilter bank in one launch; mask-off banks give zeros.
+        on = tuple(block_on(n_segs + n_banks + n_gather + pi) for pi in range(len(pt.banks)))
+        per_block.append(fused_tier(scan_dense_tier, pt, on))
     if per_block:
         return torch.cat(per_block, dim=1)  # [T, G]
     return zeros(1)

@@ -9,9 +9,12 @@ three one-hot matmuls over the slot axis (the MXU form); here:
 
 - ``scan_flat_bank`` — dispatch: CUDA tensors launch the hand-written
   kernel ``cko_scan_flat`` (``csrc/dfa_scan.cu``): one block per (row
-  block, group) stages the group's own [256, S_g] slice of its segment in
-  shared memory and walks rows with the local state in a register; each
-  group reads its own pipeline's bytes. CPU tensors take ``scan_flat_xla``.
+  tile, group) stages the group's own [256, S_g] table in shared memory
+  once for up to 1024 rows, stages the tile's bytes from the group's own
+  pipeline [B, L] as they are, and walks several rows per thread with
+  their chains interleaved. Each launch reads at most ``MAX_PIPES``
+  pipelines (a bin over more is split by pipeline). CPU tensors take
+  ``scan_flat_xla``.
 - ``scan_flat_xla`` — the plain PyTorch twin (name kept from the
   reference): per byte step one index gather per (row, group) at column
   ``base_g + state`` of the concatenated slot table.
@@ -24,6 +27,7 @@ column order.
 
 from __future__ import annotations
 
+import ctypes
 import os as _os
 from dataclasses import dataclass, field
 
@@ -33,7 +37,7 @@ import torch
 from ..compiler.re_dfa import DFA
 from ..utils.device import resolve_device
 from . import kernels
-from .dfa import ScanTables, _check_batch, _check_on, launch_scan, scan_tables
+from .dfa import MAX_PIPES, SMEM_CAP, _check_batch, _check_on, i32_rows, pipe_structs, r16, split_launches
 
 _LANE = 128
 _FLAT_VMEM_BUDGET = int(_os.environ.get("CKO_FLAT_VMEM_MB", "15")) * 2**20
@@ -44,9 +48,26 @@ _PALLAS_MAX_LEN = int(_os.environ.get("CKO_FLAT_MAX_LEN", "2048"))
 # Launches of ``cko_scan_flat`` (the wrapper counts each one).
 LAUNCHES = 0
 
+_THREADS = 256  # threads per kernel block
+_TILE_BYTES = 96 * 1024  # shared bytes of a block's staged row tile
+
 
 def _round_up(n: int, m: int) -> int:
     return (n + m - 1) // m * m
+
+
+@dataclass
+class FlatLayout:
+    """Kernel-side layout of a bin: per group its int16 [256, S_g] slice of
+    the slot table, each 16-byte aligned, and a record per group."""
+
+    tab: torch.Tensor  # int16, per group [256, S_g] tables
+    grp_info: torch.Tensor  # [G, 3] int32: table offset, S, end-match offset
+    mend: torch.Tensor  # uint8, concatenated [S_g] end-match flags
+    always: torch.Tensor  # [G] uint8
+    grp_slot: tuple  # per group: its input slot (index into pipeline_ids)
+    tab_bytes: tuple  # per group: its padded table bytes
+    launches: tuple  # per launch: (first input slot, [n, 2] int32 (group, slot local))
 
 
 @dataclass
@@ -67,26 +88,10 @@ class FlatBank:
     seg_slots: tuple = ()  # padded slot count per table segment
     group_pipe: tuple = ()  # pipeline id per (real) group
     pieces: tuple = ()  # (block_index, g_lo, g_hi) per covered group run
-    kt: ScanTables | None = field(default=None, init=False, repr=False)
-    k_pipe: torch.Tensor | None = field(default=None, init=False, repr=False)
+    layout: FlatLayout | None = field(default=None, init=False, repr=False)
 
     def __post_init__(self):
-        g = self.n_groups
-        slot_table = torch.cat([t.to(torch.int32) for t in self.tables], dim=1)
-        base = self.base_g[0, :g].to(torch.int64).tolist()
-        sizes = self.s_g[0, :g].to(torch.int64).tolist()
-        mend = self.mend[0] != 0
-        self.kt = scan_tables(
-            [slot_table[:, a : a + s] for a, s in zip(base, sizes)],
-            [mend[a : a + s] for a, s in zip(base, sizes)],
-            self.always,
-            n_rows=256,
-        )
-        pid_ix = {p: i for i, p in enumerate(self.pipeline_ids)}
-        self.k_pipe = torch.as_tensor(
-            [pid_ix[p] for p in self.group_pipe], dtype=torch.int32,
-            device=self.always.device,
-        )
+        self.layout = flat_layout(self)
 
     @property
     def pipeline_ids(self) -> list[int]:
@@ -99,6 +104,56 @@ class FlatBank:
     @property
     def n_groups(self) -> int:
         return int(self.always.shape[0])
+
+
+def flat_layout(flat: FlatBank) -> FlatLayout:
+    """Lay ``flat``'s slot table out per group for ``cko_scan_flat``."""
+    g = flat.n_groups
+    dev = flat.always.device
+    slot_table = torch.cat([t.to(torch.int32) for t in flat.tables], dim=1)
+    base = flat.base_g[0, :g].to(torch.int64).tolist()
+    sizes = flat.s_g[0, :g].to(torch.int64).tolist()
+    mend = (flat.mend[0] != 0).to(torch.uint8)
+    slot_of = {p: i for i, p in enumerate(flat.pipeline_ids)}
+    tabs, grp_info, mends, tab_bytes = [], [], [], []
+    off = moff = 0
+    for a, s in zip(base, sizes):
+        if 2 * s - 1 > 32767:
+            raise ValueError(f"state count {s} does not fit the int16 scan table")
+        n = 256 * s
+        pad = -n % 8  # each group's table starts 16-byte aligned
+        t = slot_table[:, a : a + s].reshape(-1)
+        tabs.append(torch.cat([t, t.new_zeros(pad)]).to(torch.int16))
+        grp_info.append((off, s, moff))
+        mends.append(mend[a : a + s])
+        tab_bytes.append(2 * (n + pad))
+        off += n + pad
+        moff += s
+    grp_slot = tuple(slot_of[p] for p in flat.group_pipe)
+    return FlatLayout(
+        tab=torch.cat(tabs).contiguous(),
+        grp_info=i32_rows(grp_info, dev),
+        mend=torch.cat(mends).contiguous(),
+        always=flat.always.to(torch.uint8).contiguous(),
+        grp_slot=grp_slot,
+        tab_bytes=tuple(tab_bytes),
+        launches=split_launches(list(enumerate(grp_slot)), 1, len(slot_of), dev),
+    )
+
+
+def flat_launch_shape(layout: FlatLayout, b: int, length: int, n_sms: int) -> tuple[int, int, int, int]:
+    """(rows per thread R, byte columns per row tile, table bytes a block
+    stages, block shared bytes) of one launch over ``b`` rows of width
+    ``length`` on a card of ``n_sms`` SMs. R is the largest of 4, 2, 1 that
+    still gives every SM a block, so a staged table serves as many rows as
+    the card allows; the row tile holds at most ``_TILE_BYTES``."""
+    groups = max(int(r.shape[0]) for _base, r in layout.launches)
+    rpt = next(r for r in (4, 2, 1) if r == 1 or -(-b // (_THREADS * r)) * groups >= n_sms)
+    rows = _THREADS * rpt
+    cols = min(256, r16(max(length, 1)), (_TILE_BYTES // rows - 4) // 16 * 16)
+    rest = r16(rows * (cols + 4)) + 16
+    tab = max((t for t in layout.tab_bytes if t <= SMEM_CAP - rest), default=0)
+    return rpt, cols, tab, tab + rest
 
 
 def flat_vmem_bytes(
@@ -304,8 +359,8 @@ def build_flat_bank(
     )
 
 
-def _stack_pipes(flat: FlatBank, data_by_pipe, where: str):
-    """[P, L, B] bytes and [P, B] lengths for the bin's pipelines."""
+def _check_pipes(flat: FlatBank, data_by_pipe, where: str) -> torch.Tensor:
+    """Validate the bin's per-pipeline inputs; returns the first data."""
     pids = flat.pipeline_ids
     d0 = data_by_pipe[pids[0]][0]
     for p in pids:
@@ -313,6 +368,13 @@ def _stack_pipes(flat: FlatBank, data_by_pipe, where: str):
         _check_batch(d, ln, where)
         if d.shape != d0.shape or d.device != d0.device:
             raise ValueError(f"{where}: pipeline buffers differ in shape or device")
+    return d0
+
+
+def _stack_pipes(flat: FlatBank, data_by_pipe, where: str):
+    """[P, B, L] bytes and [P, B] lengths for the bin's pipelines."""
+    _check_pipes(flat, data_by_pipe, where)
+    pids = flat.pipeline_ids
     data = torch.stack([data_by_pipe[p][0] for p in pids])  # [P, B, L]
     lens = torch.stack([data_by_pipe[p][1].to(torch.int32) for p in pids])  # [P, B]
     return data, lens
@@ -330,7 +392,7 @@ def scan_flat_xla(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
     tab = slot_table.reshape(-1)
     base = flat.base_g[0, :g].to(torch.int64)[None, :]
     s_g = flat.s_g[0, :g].to(torch.int64)[None, :]
-    pipe = flat.k_pipe.to(device=dev, dtype=torch.int64)
+    pipe = torch.as_tensor(flat.layout.grp_slot, dtype=torch.int64, device=dev)
     bytes_g = data.to(torch.int64)[pipe]  # [G, B, L]
     lens_g = lens.to(torch.int64)[pipe].t()  # [B, G]
 
@@ -353,18 +415,31 @@ def scan_flat_bank(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
     the bin to its transformed ``(data [B, L] uint8, lengths [B])``.
     Returns matched [B, G_bin] bool.
 
-    CPU tensors take the plain twin; CUDA tensors launch ``cko_scan_flat``."""
+    CPU tensors take the plain twin; CUDA tensors launch ``cko_scan_flat``
+    (once per ``MAX_PIPES`` pipelines of the bin)."""
     global LAUNCHES
-    data, lens = _stack_pipes(flat, data_by_pipe, "scan_flat_bank")
-    if data.device.type == "cpu":
+    d0 = _check_pipes(flat, data_by_pipe, "scan_flat_bank")
+    dev = d0.device
+    if dev.type == "cpu":
         return scan_flat_xla(flat, data_by_pipe)
-    if data.device.type != "cuda":
-        raise ValueError(f"scan_flat_bank: unsupported device {data.device}")
-    _check_on(flat.sel, data.device, "scan_flat_bank")
-    dataT = data.transpose(1, 2).contiguous()  # [P, L, B]
-    out = launch_scan(
-        "cko_scan_flat", flat.kt, dataT, lens.contiguous(), flat.n_groups,
-        extra=(kernels.ptr(flat.k_pipe),),
-    )
-    LAUNCHES += 1
+    if dev.type != "cuda":
+        raise ValueError(f"scan_flat_bank: unsupported device {dev}")
+    _check_on(flat.sel, dev, "scan_flat_bank")
+    lay = flat.layout
+    b, length = d0.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rpt, cols, tab_smem, smem = flat_launch_shape(lay, b, length, sms)
+    structs, _keep = pipe_structs([data_by_pipe[p] for p in flat.pipeline_ids])
+    out = torch.empty((b, flat.n_groups), dtype=torch.bool, device=dev)
+    p, i = kernels.ptr, ctypes.c_int
+    stream = kernels.stream_ptr(dev)
+    for base, recs in lay.launches:
+        args = [
+            structs[base // MAX_PIPES], i(b), i(length), i(cols), i(rpt), p(lay.tab), p(recs),
+            p(lay.grp_info), p(lay.mend), p(lay.always), i(tab_smem), i(smem), i(recs.shape[0]),
+            p(out), i(flat.n_groups), stream,
+        ]
+        fn = kernels.function("dfa_scan", "cko_scan_flat", [type(a) for a in args])
+        kernels.check(fn(*args), "dfa_scan", "cko_scan_flat")
+    LAUNCHES += len(lay.launches)
     return out

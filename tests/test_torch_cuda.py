@@ -4,9 +4,11 @@ Each scan kernel is held bit for bit against its plain PyTorch version on
 the card, on edge cases the main path rarely shows: empty rows, lengths
 past the buffer, f32-class tables, a table too large for shared memory
 (read from global memory by the same kernel), and a multi-pipeline flat
-bin. The fused gather tier (several banks over distinct pipelines, under
-kind masks) and the finals kernel are held against their plain versions
-at the main path's shapes (12288 x 64, 1024 x 2048 rows, and 4096 x 64);
+bin. The fused dense and gather tiers (several banks over distinct
+pipelines, under kind masks), the flat kernel and the finals kernel are
+held against their plain versions at the main path's shapes (12288 x 64,
+1024 x 2048 rows, and 4096 x 64); the tiers and a flat bin over nine
+pipelines run as two launches;
 the finals kernel also at a crs-lite block's widths, with two embed words
 per position, with no channel and at one row and column. Then small
 engine windows on the card (the
@@ -92,19 +94,85 @@ def test_gather_kernel_equals_plain(card, dfas):
     assert torch.equal(got, dfa_gather.scan_gather_bank_jnp(bank, data, lens))
 
 
-@pytest.mark.parametrize("b,length", [(12288, 64), (1024, 2048), (4096, 64), (777, 40)],
-                         ids=["12288x64", "1024x2048", "4096x64", "unaligned"])
+SHAPES = [(12288, 64), (1024, 2048), (4096, 64), (777, 40)]
+SHAPE_IDS = ["12288x64", "1024x2048", "4096x64", "unaligned"]
+TIERS = {  # kind: (stack a bank, build a tier, fused scan, plain tier, module)
+    "dense": (dfa.stack_dfas, dfa.build_dense_tier, dfa.scan_dense_tier, dfa.scan_dense_tier_plain, dfa),
+    "gather": (dfa_gather.stack_gather_bank, dfa_gather.build_gather_tier,
+               dfa_gather.scan_gather_tier, dfa_gather.scan_gather_tier_plain, dfa_gather),
+}
+
+
+@pytest.mark.parametrize("b,length", SHAPES, ids=SHAPE_IDS)
 @pytest.mark.parametrize("on", [(True,) * 4, (False, True, False, True)], ids=["all", "masked"])
-def test_gather_tier_kernel_equals_plain(card, b, length, on):
-    banks = [dfa_gather.stack_gather_bank(d, device=card)
-             for d in (SMALL[:3], SMALL[3:], SMALL + MID, SMALL[:1])]
-    tier = dfa_gather.build_gather_tier(banks, [0, 3, 0, 5])
+@pytest.mark.parametrize("kind", ["dense", "gather"])
+def test_tier_kernel_equals_plain(card, kind, b, length, on):
+    stack, build, scan, plain, mod = TIERS[kind]
+    banks = [stack(d, device=card) for d in (SMALL[:3], SMALL[3:], SMALL + MID, SMALL[:1])]
+    tier = build(banks, [0, 3, 0, 5])
     inputs = [tuple(_on(card, *_rows(b, length, seed=10 + k))) for k in range(3)]
-    before = dfa_gather.LAUNCHES
-    got = dfa_gather.scan_gather_tier(tier, inputs, on)
+    before = mod.LAUNCHES
+    got = scan(tier, inputs, on)
     torch.cuda.synchronize()
-    assert dfa_gather.LAUNCHES == before + 1
-    assert torch.equal(got, dfa_gather.scan_gather_tier_plain(tier, inputs, on))
+    assert mod.LAUNCHES == before + 1
+    assert torch.equal(got, plain(tier, inputs, on))
+
+
+@pytest.mark.parametrize("kind", ["dense", "gather"])
+def test_tier_over_nine_pipelines_kernel_equals_plain(card, kind):
+    """Banks over nine pipelines: two launches (slots 0-7, then 8), one
+    output."""
+    stack, build, scan, plain, mod = TIERS[kind]
+    banks = [stack(SMALL[i % 6 : i % 6 + 2], device=card) for i in range(9)]
+    tier = build(banks, list(range(9)))
+    assert len(tier.launches) == 2
+    inputs = [tuple(_on(card, *_rows(3000, 48, seed=30 + k))) for k in range(9)]
+    on = (True,) * 9
+    before = mod.LAUNCHES
+    got = scan(tier, inputs, on)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 2
+    assert torch.equal(got, plain(tier, inputs, on))
+
+
+# crs-lite's flat bin has groups of 68 to 118 states over four pipelines.
+FLAT_GROUPS = [
+    (0, SMALL + MID), (2, [re_dfa.literal_dfa(b"0123456789abcdef" * 7)]),
+    (5, [re_dfa.literal_dfa(b"abcdefghijklmnopq" * 4)] + SMALL[:2]), (6, MID + SMALL[4:]),
+]
+
+
+@pytest.mark.parametrize("b,length", SHAPES, ids=SHAPE_IDS)
+def test_flat_kernel_equals_plain(card, b, length):
+    bins, rejected = dfa_flat.plan_flat_bins(
+        [(i, pid, d) for i, (pid, d) in enumerate(FLAT_GROUPS)], max_slots=100000
+    )
+    assert not rejected and len(bins) == 1
+    flat = dfa_flat.build_flat_bank(bins[0], device=card)
+    assert flat.pipeline_ids == [0, 2, 5, 6]
+    by_pipe = {p: tuple(_on(card, *_rows(b, length, seed=40 + p))) for p in flat.pipeline_ids}
+    before = dfa_flat.LAUNCHES
+    got = dfa_flat.scan_flat_bank(flat, by_pipe)
+    torch.cuda.synchronize()
+    assert dfa_flat.LAUNCHES == before + 1
+    want = dfa_flat.scan_flat_xla(flat, by_pipe)
+    assert torch.equal(got, want)
+    assert want.any() and not want.all()
+
+
+def test_flat_over_nine_pipelines_kernel_equals_plain(card):
+    bins, _rejected = dfa_flat.plan_flat_bins(
+        [(i, i, SMALL[i % 6 : i % 6 + 2]) for i in range(9)], max_slots=100000, length_hint=16
+    )
+    assert len(bins) == 1
+    flat = dfa_flat.build_flat_bank(bins[0], device=card)
+    assert len(flat.layout.launches) == 2
+    by_pipe = {p: tuple(_on(card, *_rows(3000, 48, seed=50 + p))) for p in flat.pipeline_ids}
+    before = dfa_flat.LAUNCHES
+    got = dfa_flat.scan_flat_bank(flat, by_pipe)
+    torch.cuda.synchronize()
+    assert dfa_flat.LAUNCHES == before + 2
+    assert torch.equal(got, dfa_flat.scan_flat_xla(flat, by_pipe))
 
 
 def test_flat_kernel_equals_plain_with_global_memory_table(card):
@@ -113,7 +181,8 @@ def test_flat_kernel_equals_plain_with_global_memory_table(card):
     )
     assert not rejected and len(bins) == 1
     flat = dfa_flat.build_flat_bank(bins[0], device=card)
-    assert flat.kt.smem_bytes < 2 * 256 * HUGE[0].n_states  # HUGE reads from L2
+    _rpt, _cols, tab_smem, _smem = dfa_flat.flat_launch_shape(flat.layout, 2000, 40, 132)
+    assert tab_smem < 2 * 256 * HUGE[0].n_states  # HUGE reads from L2
     d0, l0 = _rows(2000, 40, seed=3)
     d3, l3 = _rows(2000, 40, seed=4)
     by_pipe = {0: tuple(_on(card, d0, l0)), 3: tuple(_on(card, d3, l3))}

@@ -144,13 +144,18 @@ def test_model_from_arrays_round_trip(crs_lite_models):
     assert carried.device == CPU
     _assert_same(model_to_arrays(carried), model_to_arrays(tm))
     _assert_dtypes(carried, jm)
-    for bank, ref in zip(carried.flat_banks + carried.pre_banks, tm.flat_banks + tm.pre_banks):
-        for f in ("tab", "tab_off", "n_states", "mend", "mend_off", "always"):
-            assert torch.equal(getattr(bank.kt, f), getattr(ref.kt, f)), f
-    # The fused dfa-hot tier is laid out the same from carried tables.
-    for f in ("tab", "bank_info", "grp_info", "mend", "always", "cmaps"):
-        assert torch.equal(getattr(carried.gather_tier, f), getattr(tm.gather_tier, f)), f
-    assert carried.gather_tier.pipelines == tm.gather_tier.pipelines
+    for bank, ref in zip(carried.flat_banks, tm.flat_banks):
+        for f in ("tab", "grp_info", "mend", "always"):
+            assert torch.equal(getattr(bank.layout, f), getattr(ref.layout, f)), f
+        assert bank.layout.grp_slot == ref.layout.grp_slot
+    # The fused dfa-hot and prefilter tiers are laid out the same from
+    # carried tables.
+    for name, fields in (("gather_tier", ("cmaps",)), ("pre_tier", ())):
+        tier, ref = getattr(carried, name), getattr(tm, name)
+        for f in ("tab", "grp_info", "mend", "always") + fields:
+            assert torch.equal(getattr(tier, f), getattr(ref, f)), (name, f)
+        assert tier.pipelines == ref.pipelines and tier.pipe_slot == ref.pipe_slot, name
+        assert [(b, r.tolist()) for b, r in tier.launches] == [(b, r.tolist()) for b, r in ref.launches]
 
 
 @pytest.fixture(scope="module")
