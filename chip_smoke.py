@@ -32,6 +32,28 @@ failure exits non-zero; no phase is caught):
    native assemble time; then ``evaluate_phased`` and
    ``evaluate_response`` against the CPU engine and
    ``host_fallback.evaluate`` against the card's verdicts;
+6. the sidecar on the card (``sidecar_phase``): the port's rule-cache
+   server holds crs-lite; the port's sidecar polls it with the deployed
+   defaults (async frontend, windows of up to 2048 requests, 1 ms batch
+   delay, pipeline depth 2; verdict cache off, the adaptive scheduler off
+   so it keeps the delay and the depth) and is driven over real sockets
+   (filter mode, keep-alive, 8 connections pipelining 32 each) with 768
+   of phase 3's requests: served req/s, per-request p50/p99 (all, and
+   after each connection's first group), windows and their mean size, the
+   batcher's host and device stage p50s, each kernel's launches. A second
+   sidecar started in the same process with a 100 ms batch delay (a
+   window costs about the same host time whatever its size, so at 1 ms
+   the 4096 would take minutes) serves all 4096; the three scan kernels
+   must launch. Every answer (status, x-waf-action, x-waf-rule-id, body)
+   must equal a CPU sidecar's on the threaded frontend; again with
+   ``CKO_PALLAS_FINALS=1`` (the finals kernel must launch); a hot reload
+   must flip a request that only the new rule matches from 200 to 403
+   after a shadowed rollout; one injected device loss must be answered by
+   the host fallback and end ``promoted`` again. ``CKO_LAZY_TIERS=1`` (the
+   JAX package's deployed default) is set throughout, and no stage may go
+   through a host twin. ``/waf/v1/metrics`` must carry the build info
+   (torch and CUDA versions), the compile-cache and tier-kind families,
+   and the profile endpoint's trace must name the scan kernels;
 5. after every timed window (no profiler session runs before them): each
    kernel's own device time per launch at phase 2's shapes, from one
    ``torch.profiler`` pass each (kernel events by name); then one
@@ -52,11 +74,15 @@ more after phase 5's sessions.
 from __future__ import annotations
 
 import argparse
+import http.client
 import json
 import os
+import re
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -177,6 +203,405 @@ def random_rows(rng, b: int, length: int):
     lens = rng.integers(0, length + 1, size=b).astype(np.int32)
     data[np.arange(length)[None, :] >= lens[:, None]] = 0
     return data, lens
+
+
+# -- phase 6 helpers: an HTTP/1.1 client with keep-alive and pipelining ------
+
+
+def request_bytes(req) -> bytes:
+    """One request on the wire, encoded like a real client: the synthetic
+    attack URIs carry raw spaces, which a request line must not."""
+    uri = req.uri.replace(" ", "%20")
+    lines = [f"{req.method} {uri} HTTP/1.1"]
+    for k, v in req.headers:
+        lines.append(f"{k}: {v}")
+    if req.body:
+        lines.append(f"Content-Length: {len(req.body)}")
+    head = ("\r\n".join(lines) + "\r\n\r\n").encode("latin-1", "replace")
+    return head + (req.body or b"")
+
+
+def read_response(f) -> tuple:
+    """(status, x-waf-action, x-waf-rule-id, body) of one response."""
+    status_line = f.readline()
+    if not status_line:
+        raise ConnectionError("the sidecar closed the connection mid-stream")
+    status = int(status_line.split()[1])
+    headers = {}
+    while True:
+        ln = f.readline()
+        if ln in (b"\r\n", b"\n", b""):
+            break
+        k, _, v = ln.decode("latin-1").partition(":")
+        headers[k.strip().lower()] = v.strip()
+    length = int(headers.get("content-length", 0))
+    body = f.read(length) if length else b""
+    return (status, headers.get("x-waf-action"), headers.get("x-waf-rule-id"), body)
+
+
+def drive(port: int, payloads: list, conns: int, depth: int):
+    """Send ``payloads`` over ``conns`` keep-alive connections, each
+    pipelining groups of ``depth``. Returns (answers and, in the same
+    order, per-request seconds from its group's send to its answer, wall
+    seconds). Request ``i`` rides connection ``i % conns`` in that
+    connection's group ``i // conns // depth``."""
+    shares = [payloads[i::conns] for i in range(conns)]
+    out: list = [None] * conns
+    # Connect one at a time: a burst of connects can overflow a listener's
+    # accept backlog (the threaded frontend's is 5) into SYN retries.
+    socks = [socket.create_connection(("127.0.0.1", port), timeout=300) for _ in range(conns)]
+
+    def worker(idx):
+        try:
+            answers, lat = [], []
+            s = socks[idx]
+            try:
+                f = s.makefile("rb")
+                for i in range(0, len(shares[idx]), depth):
+                    group = shares[idx][i : i + depth]
+                    t0 = time.perf_counter()
+                    s.sendall(b"".join(group))
+                    for _ in group:
+                        answers.append(read_response(f))
+                        lat.append(time.perf_counter() - t0)
+            finally:
+                s.close()
+            out[idx] = (answers, lat)
+        except BaseException as err:  # raised in the main thread below
+            out[idx] = err
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(conns)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    answers: list = [None] * len(payloads)
+    lat: list = [None] * len(payloads)
+    for i, r in enumerate(out):
+        if isinstance(r, BaseException):
+            raise r
+        answers[i::conns] = r[0]
+        lat[i::conns] = r[1]
+    return answers, lat, wall
+
+
+def http_call(port: int, method: str, path: str, token: str, body: bytes = b""):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request(method, path, body=body or None,
+                     headers={"Authorization": f"Bearer {token}",
+                              "Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def wait_for(pred, timeout_s: float, what: str, interval_s: float = 0.05) -> float:
+    """Seconds until ``pred()`` holds; exits non-zero past ``timeout_s``."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise SystemExit(f"phase 6: timed out after {timeout_s} s waiting for {what}")
+        time.sleep(interval_s)
+    return time.perf_counter() - t0
+
+
+def pct(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
+
+
+def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table) -> None:
+    """Phase 6: the port's sidecar on the card, driven over real sockets."""
+    import torch
+
+    from coraza_kubernetes_operator_tpu_torch.cache import RuleSetCache, RuleSetCacheServer
+    from coraza_kubernetes_operator_tpu_torch.engine import waf as waf_mod
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+    from coraza_kubernetes_operator_tpu_torch.engine.value_cache import ValueHitCache
+    from coraza_kubernetes_operator_tpu_torch.ftw.corpus import load_ruleset_text
+    from coraza_kubernetes_operator_tpu_torch.sidecar import SidecarConfig, TpuEngineSidecar
+    from coraza_kubernetes_operator_tpu_torch.sidecar.batcher import LANE_BULK
+
+    key, token = "default/crs-lite", "chip-smoke"
+    scans = ("cko_scan_flat", "cko_scan_gather", "cko_scan_dense")
+    os.environ["CKO_VERDICT_CACHE_MAX"] = "0"  # every request rides a device window
+    os.environ["CKO_PALLAS_FINALS"] = "0"
+    # The JAX package's tpu-engine sets this by default (it answers stages
+    # not compiled yet through the host twins). The port has no such mode:
+    # with it set, no window may leave the card.
+    os.environ["CKO_LAZY_TIERS"] = "1"
+    host_twin_calls = [0]
+    real_twins = {name: getattr(waf_mod.WafEngine, name) for name in ("_host_tier_hits", "_host_post")}
+
+    def counted(real):
+        def twin(self, *a, **k):
+            host_twin_calls[0] += 1
+            return real(self, *a, **k)
+        return twin
+
+    for name, real in real_twins.items():
+        setattr(waf_mod.WafEngine, name, counted(real))
+    cache = RuleSetCache()
+    srv = RuleSetCacheServer(cache, host="127.0.0.1", port=0)
+    srv.start()
+    rules = load_ruleset_text()
+    cache.put(key, rules)
+    running = []
+
+    def config(**kw):
+        base = dict(cache_base_url=f"http://127.0.0.1:{srv.port}", instance_key=key,
+                    poll_interval_s=0.2, host="127.0.0.1", port=0, max_batch_size=2048,
+                    max_batch_delay_ms=1.0, pipeline_depth=2, frontend="async",
+                    metrics_auth_token=token, shadow_promote_windows=2,
+                    shadow_idle_check_s=0.05, compile_budget_s=600.0,
+                    # The adaptive scheduler would retune the batch delay and
+                    # the depth of 2 (toward a 50 ms p99 it cannot reach
+                    # here, so it shrinks windows): keep them as set.
+                    adaptive_enabled=False)
+        return SidecarConfig(**{**base, **kw})
+
+    def start(cfg, engine=None):
+        sc = TpuEngineSidecar(cfg, engine=engine)
+        running.append(sc)
+        t0 = time.perf_counter()
+        sc.start()
+        wait_for(lambda: sc.serving_mode() == "promoted", 300, "promotion")
+        return sc, time.perf_counter() - t0
+
+    def stop(sc):
+        sc.stop()
+        running.remove(sc)
+
+    def counts():
+        return {k: m.LAUNCHES for k, m in mods.items()}
+
+    def zero():
+        for m in mods.values():
+            m.LAUNCHES = 0
+
+    def mark(sc):
+        st = sc.batcher.stats
+        return len(st.batch_sizes), len(st.host_stage_s), st.errors
+
+    def since(sc, m):
+        st = sc.batcher.stats
+        sizes = st.batch_sizes[m[0]:]
+        return (len(sizes), sum(sizes) / max(1, len(sizes)),
+                pct(st.step_latencies_s[m[0]:], 0.5) * 1e3,
+                pct(st.host_stage_s[m[1]:], 0.5) * 1e3,
+                pct(st.device_stage_s[m[1]:], 0.5) * 1e3, st.errors - m[2])
+
+    def same(got, want, what):
+        diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+        if len(got) != len(want) or diff:
+            i = diff[0] if diff else None
+            raise SystemExit(f"phase 6: {what}: {len(diff)} answers differ from the CPU "
+                             f"sidecar's, first {diff[:5]}: "
+                             f"{got[i] if i is not None else ''} vs {want[i] if i is not None else ''}")
+
+    def serve(sc, tag, n, conns=8, depth=32):
+        """Phase 3's first ``n`` requests over ``conns`` connections x
+        ``depth`` pipelined; logs what a client saw and what the batcher
+        did. Requests after each connection's first group are the steady
+        state (the first group is one burst of conns x depth)."""
+        zero()
+        torch.cuda.synchronize()
+        m = mark(sc)
+        answers, lat, wall = drive(sc.port, payloads[:n], conns, depth)
+        delay = sc.batcher.lane_delay_s[LANE_BULK] * 1e3
+        launched = counts()
+        windows, mean, step, host, dev, errs = since(sc, m)
+        steady = [x for i, x in enumerate(lat) if i // conns >= depth]
+        log(f"phase 6: {tag}: {n} requests at a {delay:g} ms batch delay, {n / wall:.1f} "
+            f"req/s served ({wall:.3f} s), "
+            f"request p50 {pct(lat, 0.5) * 1e3:.1f} ms p99 {pct(lat, 0.99) * 1e3:.1f} ms "
+            f"(after each connection's first group: {len(steady)} requests, p50 "
+            f"{pct(steady, 0.5) * 1e3:.1f} ms p99 {pct(steady, 0.99) * 1e3:.1f} ms), "
+            f"{windows} windows of mean {mean:.1f} requests, step p50 {step:.1f} ms, batcher "
+            f"host stage p50 {host:.2f} ms, device stage p50 {dev:.2f} ms, errors {errs}; "
+            f"kernel launches {launched}; mode {sc.serving_mode()} [{card}]")
+        if errs or sc.serving_mode() != "promoted":
+            raise SystemExit(f"phase 6: {tag}: {errs} window errors, mode {sc.serving_mode()}")
+        if host_twin_calls[0]:
+            raise SystemExit(f"phase 6: {tag}: {host_twin_calls[0]} host-twin stage calls on the card")
+        return answers, launched
+
+    payloads = [request_bytes(r) for r in reqs]
+    try:
+        # 1. the sidecar on the card as deployed (the gpu-engine defaults:
+        # 1 ms batch delay), from the cache server's crs-lite.
+        sc, cold_s = start(config())
+        engine = sc.tenants.engine_for(None)
+        if engine.device.type != "cuda":
+            raise SystemExit(f"phase 6: the sidecar's engine is on {engine.device}")
+        log(f"phase 6: sidecar up on {engine.device}; start to the first device verdict "
+            f"(promotion) {cold_s:.3f} s, the process's first sidecar [{card}]")
+
+        # 2. phase 3's requests over sockets, 8 connections x 32 pipelined:
+        # 768 of them as deployed (three groups per connection), then all
+        # 4096 on a second sidecar started with a 100 ms batch delay
+        # (--max-batch-delay-ms 100): at 1 ms a window holds what the ingest
+        # loop parsed in 1 ms and costs about as much host time as a large
+        # one, so the 4096 would take minutes.
+        pinned, _launched = serve(sc, "finals off, as deployed", 768)
+        stop(sc)
+        sc, restart_s = start(config(max_batch_delay_ms=100.0))
+        log(f"phase 6: second sidecar (100 ms batch delay) up; start to the first device "
+            f"verdict {restart_s:.3f} s in the same process (compiled ruleset, kernels and "
+            f"CUDA context already there) against {cold_s:.3f} s for the first [{card}]")
+        engine = sc.tenants.engine_for(None)
+        answers, launched = serve(sc, "finals off", len(payloads))
+        if not all(launched[k] for k in scans):
+            raise SystemExit(f"phase 6: a scan kernel was not launched on the sidecar path: {launched}")
+        for k, n in launched.items():
+            table[k]["sidecar_launches"] = n
+        if pinned != answers[: len(pinned)]:
+            raise SystemExit("phase 6: the 1 ms windows answer otherwise than the 100 ms windows")
+
+        # 3. the same bytes to a CPU sidecar (threaded frontend); phase 3's
+        # CPU engine serves it, so its value cache holds most values. A CPU
+        # window costs seconds whatever its size, so 1024 connections (a
+        # thread each there) fill windows of 1024: four windows in all.
+        cpu_sc, _ = start(config(instance_key="default/cpu-reference", frontend="threaded",
+                                 device="cpu", request_timeout_s=900.0, max_batch_size=1024,
+                                 max_batch_delay_ms=2000.0, max_connections=4096),
+                          engine=cpu_eng)
+        t0 = time.perf_counter()
+        m = mark(cpu_sc)
+        want, _lat, _wall = drive(cpu_sc.port, payloads, 1024, 4)
+        cpu_windows = since(cpu_sc, m)
+        stop(cpu_sc)
+        same(answers, want, "finals off")
+        blocked = sum(a[0] != 200 for a in answers)
+        moved = [i for i, (a, v) in enumerate(zip(answers, verdicts)) if a[0] != v.status]
+        log(f"phase 6: {len(answers)} answers equal to the CPU sidecar's ({time.perf_counter() - t0:.1f} s, "
+            f"{cpu_windows[0]} CPU windows of mean {cpu_windows[1]:.1f} requests, step p50 "
+            f"{cpu_windows[2]:.0f} ms); "
+            f"{blocked} blocked over HTTP against {sum(v.interrupted for v in verdicts)} in phase 3; "
+            f"{len(moved)} requests answer otherwise than their phase-3 verdict, e.g. "
+            f"{[(i, reqs[i].method, reqs[i].uri[:60], verdicts[i].status, answers[i][0]) for i in moved[:4]]}")
+
+        # 4. again with the finals tier on, the value cache emptied so the
+        # windows do the first pass's work.
+        os.environ["CKO_PALLAS_FINALS"] = "1"
+        vc = engine.value_cache
+        if vc is not None:
+            engine.value_cache = ValueHitCache(vc.packed_len, vc.max_bytes)
+        answers_on, launched = serve(sc, "finals on", len(payloads))
+        same(answers_on, want, "finals on")
+        if not launched["cko_finals_match"]:
+            raise SystemExit(f"phase 6: cko_finals_match did not launch with the tier on: {launched}")
+        table["cko_finals_match"]["sidecar_launches"] = launched["cko_finals_match"]
+
+        # 5. hot reload: crs-lite plus one phase-2 rule, through a shadowed
+        # rollout on the same card.
+        base = next(r for r, v in zip(reqs, verdicts)
+                    if not v.interrupted and r.method == "GET" and not r.body)
+        probe = [request_bytes(waf_mod.HttpRequest(uri="/?probe=ckochipsmokeprobe",
+                                                   headers=list(base.headers)))]
+        got = drive(sc.port, probe, 1, 1)[0][0]
+        if got[0] != 200:
+            raise SystemExit(f"phase 6: the reload probe is blocked before the reload: {got[:3]}")
+        reloader = sc.tenants._reloaders[key]
+        uuid0 = reloader.current_uuid
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m = mark(sc)
+        misses0 = EXEC_CACHE.snapshot()[1]
+        t0 = time.perf_counter()
+        cache.put(key, rules + 'SecRule ARGS "@contains ckochipsmokeprobe" '
+                  '"id:990001,phase:2,deny,status:403,t:none"\n')
+        shadow = payloads[:64]
+        while reloader.current_uuid == uuid0:
+            if time.perf_counter() - t0 > 300:
+                raise SystemExit(f"phase 6: the reload did not promote: {sc.rollout.stats()}")
+            drive(sc.port, shadow, 8, 32)  # live windows the candidate shadows
+        reload_s = time.perf_counter() - t0
+        n, mean, step, host, dev, errs = since(sc, m)
+        peak = torch.cuda.max_memory_allocated()
+        got = drive(sc.port, probe, 1, 1)[0][0]
+        rollout = sc.rollout.stats()
+        log(f"phase 6: hot reload promoted in {reload_s:.3f} s (rollouts {rollout['promoted']} "
+            f"promoted, {rollout['rolled_back']} rolled back, shadow {rollout['shadow']}); "
+            f"{n} live windows meanwhile (mean {mean:.1f} requests) at step p50 {step:.1f} ms, "
+            f"host stage p50 {host:.2f} ms, device stage p50 {dev:.2f} ms; device memory "
+            f"{mem0 / 2**20:.1f} MiB before, peak {peak / 2**20:.1f} MiB with the candidate "
+            f"[{card}]; new window signatures {EXEC_CACHE.snapshot()[1] - misses0}; "
+            f"probe now {got[:3]}")
+        if got[:3] != (403, "deny", "990001"):
+            raise SystemExit(f"phase 6: the reloaded rule does not block its probe: {got[:3]}")
+        if host_twin_calls[0]:
+            raise SystemExit(f"phase 6: {host_twin_calls[0]} host-twin stage calls on the card")
+
+        # 6. one injected device loss.
+        os.environ["CKO_FAULT_DEVICE_LOST_N"] = "1"
+        try:
+            t0 = time.perf_counter()
+            lost, _lat, _wall = drive(sc.port, payloads[:64], 8, 8)
+            dl = sc.degraded.device_loss
+            wait_for(lambda: dl.stats()["recoveries"] >= 1, 300, "the device re-init")
+            wait_for(lambda: sc.serving_mode() == "promoted", 300, "promotion after the re-init")
+            back_s = time.perf_counter() - t0
+        finally:
+            del os.environ["CKO_FAULT_DEVICE_LOST_N"]
+        same(lost, want[:64], "device loss")
+        log(f"phase 6: device loss answered by the host fallback, equal to the CPU; re-init "
+            f"and promotion {back_s:.3f} s; {dl.stats()}; fallback requests "
+            f"{sc.degraded.fallback_requests}")
+        if dl.stats()["losses_total"] < 1:
+            raise SystemExit("phase 6: the injected device loss was not seen")
+
+        # 7. metrics and a profile taken while traffic flows.
+        status, body = http_call(sc.port, "GET", "/waf/v1/metrics", token)
+        text = body.decode()
+        info = [ln for ln in text.splitlines() if ln.startswith("cko_build_info{")]
+        want_info = (f'torch="{torch.__version__}"', f'cuda="{torch.version.cuda}"', 'platform="cuda"')
+        if status != 200 or len(info) != 1 or not all(w in info[0] for w in want_info):
+            raise SystemExit(f"phase 6: metrics {status}: build info {info}")
+        for family in ("cko_compile_cache_hits_total", "cko_compile_cache_misses_total", "cko_tier_kind"):
+            if f"# TYPE {family}" not in text:
+                raise SystemExit(f"phase 6: /waf/v1/metrics lacks {family}")
+        prof_dir = ROOT / "build" / "profile"
+        status, body = http_call(sc.port, "POST", "/waf/v1/profile", token,
+                                 json.dumps({"action": "start", "dir": str(prof_dir)}).encode())
+        if status != 200:
+            raise SystemExit(f"phase 6: profile start {status}: {body[:200]}")
+        drive(sc.port, payloads[:8], 1, 8)  # one window: the trace holds every op
+        status, body = http_call(sc.port, "POST", "/waf/v1/profile", token,
+                                 json.dumps({"action": "stop"}).encode())
+        if status != 200:
+            raise SystemExit(f"phase 6: profile stop {status}: {body[:200]}")
+        trace = Path(json.loads(body)["trace"])
+        text = trace.read_bytes()  # a window's trace is ~100 MB: count names, do not parse
+        names = {}
+        # Names are demangled: "(anonymous namespace)::dense_tier_kernel(...)".
+        for m in re.finditer(rb'"name":\s*"[^"]*?(dense_tier_kernel|gather_tier_kernel|'
+                             rb'flat_kernel|finals_kernel)', text):
+            k = m.group(1).decode()
+            names[k] = names.get(k, 0) + 1
+        n_events = len(re.findall(rb'"ph":', text))
+        log(f"phase 6: {info[0]}; profile trace {trace.name} ({len(text)} B, "
+            f"{n_events} events) names {names}")
+        missing = [k for k in ("dense_tier_kernel", "gather_tier_kernel", "flat_kernel") if k not in names]
+        if missing:
+            raise SystemExit(f"phase 6: the profile trace does not name {missing}")
+        trace.unlink()
+        log(f"phase 6: window signatures in this process {EXEC_CACHE.stats()}; "
+            f"host-twin stage calls {host_twin_calls[0]}")
+    finally:
+        for sc_ in running:
+            sc_.stop()
+        srv.stop()
+        for name, real in real_twins.items():
+            setattr(waf_mod.WafEngine, name, real)
+        for var in ("CKO_VERDICT_CACHE_MAX", "CKO_LAZY_TIERS"):
+            os.environ.pop(var, None)
+        os.environ["CKO_PALLAS_FINALS"] = "1"
 
 
 def main() -> int:
@@ -585,6 +1010,11 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
             pass
         probe("after one empty profiler session", 400)
+
+    # -- phase 6: the sidecar on the card ----------------------------------------
+    t0 = time.perf_counter()
+    sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table)
+    log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5: each kernel's own device time per launch ----------------------
     for kname, b, length, build, dev_name, reps in deferred:

@@ -33,7 +33,10 @@
 // stages its rows' bytes in shared memory first. The shared-memory attribute
 // of each kernel is set once per size, not per launch.
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 constexpr int kMaxPipes = 8;  // pipelines one launch reads
@@ -329,16 +332,23 @@ flat_kernel(ScanPipes pipes, int B, int L, int Lt, const int16_t* __restrict__ t
 }
 
 // Dynamic shared memory each kernel may use, raised once per larger size.
-int g_smem_dense = 48 * 1024;
-int g_smem_gather = 48 * 1024;
-int g_smem_flat[3] = {48 * 1024, 48 * 1024, 48 * 1024};
+// Several host threads launch (the sidecar's dispatch thread, the tier-warm
+// pool, a rollout's shadow engine): the sizes are atomics read without a
+// lock, and a raise happens under g_smem_mu, re-checked there, so two
+// threads never race on the attribute or its cached size.
+std::atomic<int> g_smem_dense{48 * 1024};
+std::atomic<int> g_smem_gather{48 * 1024};
+std::atomic<int> g_smem_flat[3] = {{48 * 1024}, {48 * 1024}, {48 * 1024}};
+std::mutex g_smem_mu;
 
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int* set, int smem) {
-  if (smem <= *set) return cudaSuccess;
+cudaError_t allow_smem(Kernel kernel, std::atomic<int>* set, int smem) {
+  if (smem <= set->load(std::memory_order_acquire)) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(g_smem_mu);
+  if (smem <= set->load(std::memory_order_relaxed)) return cudaSuccess;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) *set = smem;
+  if (err == cudaSuccess) set->store(smem, std::memory_order_release);
   return err;
 }
 

@@ -52,7 +52,10 @@
 // host and read through L1/L2; the shared-memory attribute is set once per
 // size.
 
+#include <atomic>
 #include <cstdint>
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -200,8 +203,12 @@ finals_kernel(const uint8_t* __restrict__ embed,    // [T, Lp, C] 0/1
   }
 }
 
-int g_sms = 0;                 // SM count, read once
-int g_smem_set = 48 * 1024;    // dynamic shared memory the kernel may use
+// The SM count (read once) and the dynamic shared memory the kernel may use
+// (raised once per larger size). Several host threads launch: both are
+// atomics read without a lock and written under g_mu, re-checked there.
+std::atomic<int> g_sms{0};
+std::atomic<int> g_smem_set{48 * 1024};
+std::mutex g_mu;
 
 }  // namespace
 
@@ -218,19 +225,26 @@ int cko_finals_match(const void* embed, const void* suffix, const void* lens,
                      int Gf, int Nf, int QT, int Dmax, int smem, void* out,
                      void* stream) {
   if (T <= 0 || Nf <= 0) return 0;
-  if (g_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (smem > g_smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        finals_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    g_smem_set = smem;
+  int sms = g_sms.load(std::memory_order_acquire);
+  if (sms == 0 || smem > g_smem_set.load(std::memory_order_acquire)) {
+    std::lock_guard<std::mutex> lock(g_mu);
+    sms = g_sms.load(std::memory_order_relaxed);
+    if (sms == 0) {
+      int dev = 0;
+      cudaError_t err = cudaGetDevice(&dev);
+      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return (int)err;
+      g_sms.store(sms, std::memory_order_release);
+    }
+    if (smem > g_smem_set.load(std::memory_order_relaxed)) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          finals_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return (int)err;
+      g_smem_set.store(smem, std::memory_order_release);
+    }
   }
   // Rows are independent; a few blocks per SM walk them grid-stride.
-  const int blocks = T < 8 * g_sms ? T : 8 * g_sms;
+  const int blocks = T < 8 * sms ? T : 8 * sms;
   finals_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)embed, (const uint8_t*)suffix, (const int32_t*)lens,
       (const uint64_t*)kbits, (const int32_t*)thr, (const int32_t*)desc,

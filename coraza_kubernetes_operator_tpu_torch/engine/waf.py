@@ -13,9 +13,12 @@ Port of ``coraza_kubernetes_operator_tpu/engine/waf.py``. One window is
    ``_tensorize`` and ``tier_tensors`` do the same in Python. Then each
    tier's matcher stage (``match_tier_packed``) runs, approximate
    prefilter hits are confirmed on the host (``_confirm_prefilter``) and
-   the post stage runs (``eval_post_tiered``). PyTorch runs eagerly, so
-   the stages are plain calls: there is no executable to compile or
-   cache.
+   the post stage runs (``eval_post_tiered``). Every stage runs on the
+   engine's device: PyTorch has nothing to compile, so a window's first
+   run at a new shape is its warm, and ``EXEC_CACHE``
+   (``engine/compile_cache.py``) only counts it. The reference's lazy
+   mode, which answers not-yet-compiled stages through the host twins,
+   has no counterpart here.
 2. ``collect``: read the packed verdict array back with ``.cpu()`` (the
    window's sync point), fill the value cache, decode the verdicts and
    release the window's arena lease.
@@ -452,9 +455,15 @@ class WafEngine:
         # Host fallback evaluator, built on first use.
         self._host_fallback = None
         self._host_fallback_lock = threading.Lock()
-        # Shape signatures (tier shapes + masks) of the windows this engine
-        # has run: what prewarm reports as warmed.
-        self._signatures: set = set()
+        # Distinct window shape signatures this engine has dispatched
+        # (cko_exec_signatures / CompileReport.exec_signatures).
+        self._exec_signatures: set = set()
+        # Per-tier stage timing (CKO_TIER_TIMING=1): label -> recent wall
+        # seconds per dispatch. Each timed stage waits for the device, so
+        # it is a bench/debug knob; /waf/v1/stats shows the p50s under the
+        # automata block.
+        self._tier_timing_on = _os.environ.get("CKO_TIER_TIMING", "0") == "1"
+        self.tier_timing: dict[str, list[float]] = {}
         self._finals_logged = False
         if self.compiled.report.skipped:
             log.info(
@@ -552,6 +561,11 @@ class WafEngine:
                         self.compiled, extractor=self.extractor
                     )
         return self._host_fallback
+
+    def tier(self, tensors):
+        """Row-level (length x kind-partition) tiering with this engine's
+        kind->class-mask table: returns (tiers, numvals, masks)."""
+        return tier_tensors(tensors, self._kind_block_lut)
 
     def tier_cached(self, tensors):
         """Row-level tiering consulting the value cache: returns (tiers,
@@ -760,26 +774,19 @@ class WafEngine:
         out["p50_assemble_ms"] = recent[len(recent) // 2] * 1e3 if recent else 0.0
         return out
 
-    @staticmethod
-    def _signature(tiers, numvals, masks, cached, max_phase: int) -> tuple:
-        """A window's shape signature: per tier (unique rows x width, pair
-        rows, mask), the cached-row shapes, the numvals shape and the
-        phase bound."""
-        return (
-            tuple((tuple(t[0].shape), int(t[2].shape[0]), m) for t, m in zip(tiers, masks)),
-            None if cached is None else tuple(None if c is None else c.shape for c in cached),
-            tuple(numvals.shape),
-            max_phase,
-        )
-
     def _dispatch_tiers(
         self, tiers, numvals, n_requests: int, max_phase: int = 2, masks=None,
         cached=None, miss_keys=None,
     ) -> InFlightBatch:
         """Run one tiered window's device stages: one matcher call per
-        tier, the prefilter confirm, then the post stage."""
+        tier, the prefilter confirm, then the post stage. The one dispatch
+        site of the synchronous and the pipelined paths. The window's shape
+        signature is counted in ``EXEC_CACHE`` (a miss on its first run in
+        this process); nothing here waits for the device except the
+        prefilter confirm's read of the hit rows."""
         from ..ops.segment import finals_cols, finals_tier_requested
         from ..testing.faults import on_device_dispatch
+        from .compile_cache import EXEC_CACHE, batch_signature
 
         on_device_dispatch(warmed=self.warmed)
         dev = self.device
@@ -789,7 +796,10 @@ class WafEngine:
 
         if masks is None:
             masks = (None,) * len(tiers)
-        self._signatures.add(self._signature(tiers, numvals, masks, cached, max_phase))
+        sig = batch_signature(self.model, tiers, numvals, masks, cached, max_phase)
+        EXEC_CACHE.dispatch(sig)
+        self._exec_signatures.add(sig)
+        self.compiled.report.exec_signatures = len(self._exec_signatures)
         if not self._finals_logged and finals_tier_requested():
             self._finals_logged = True
             cols = [finals_cols(s.spec) for s in self.model.segs]
@@ -799,7 +809,10 @@ class WafEngine:
                 finals_columns=sum(cols),
             )
         tier_hits = tuple(
-            match_tier_packed(self.model, put(t[0]), put(t[1]), put(t[6]), put(t[7]), mask=mask)
+            self._stage(
+                f"match:{t[0].shape[0]}x{t[0].shape[1]}", match_tier_packed,
+                self.model, put(t[0]), put(t[1]), put(t[6]), put(t[7]), mask=mask,
+            )
             for t, mask in zip(tiers, masks)
         )
         if self.model.prefilter_cols:
@@ -808,8 +821,9 @@ class WafEngine:
         cached_t = (
             None if cached is None else tuple(None if c is None else put(c) for c in cached)
         )
-        packed = eval_post_tiered(
-            self.model, tier_hits, pairs, put(numvals), max_phase=max_phase, cached=cached_t
+        packed = self._stage(
+            "post", eval_post_tiered, self.model, tier_hits, pairs, put(numvals),
+            max_phase=max_phase, cached=cached_t,
         )
         return InFlightBatch(
             out=(packed, tier_hits) if cached is not None else packed,
@@ -819,6 +833,28 @@ class WafEngine:
             miss_keys=miss_keys,
             cache_pop=cached is not None,
         )
+
+    def _stage(self, label: str, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, wall-timed per stage label when
+        ``CKO_TIER_TIMING=1``. On the card the timing records a CUDA event
+        after the stage and waits for it, so the time covers the stage's
+        device work (and costs the overlap with the next host step): a
+        bench/debug knob, never the serving default."""
+        if not self._tier_timing_on:
+            return fn(*args, **kwargs)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        dt = time.perf_counter() - t0
+        with self._prefilter_lock:
+            buf = self.tier_timing.setdefault(label, [])
+            buf.append(dt)
+            if len(buf) > 512:
+                del buf[: len(buf) - 512]
+        return out
 
     def _confirm_prefilter(self, tier_hits, tiers, from_device):
         """Confirm device prefilter positives against the exact DFAs.
@@ -875,6 +911,32 @@ class WafEngine:
                 self.prefilter_stats["confirms"] += n_confirms
                 self.prefilter_stats["false_positives"] += n_hits - n_confirms
         return tuple(out)
+
+    def automata_summary(self) -> dict:
+        """Automata-tier composition and prefilter counters for stats and
+        metrics: which groups run where (the plan's verdict), how many
+        device banks each tier produced, how the prefilter's
+        over-approximation pays off, and per-stage p50s under
+        ``CKO_TIER_TIMING=1``."""
+        plan = self.automata_plan
+        counts = plan.counts()
+        with self._prefilter_lock:
+            pstats = dict(self.prefilter_stats)
+            timing = {
+                label: sorted(buf)[len(buf) // 2] * 1000.0
+                for label, buf in self.tier_timing.items()
+                if buf
+            }
+        summary = {
+            "enabled": plan.enabled,
+            "tiers": counts,
+            "gather_banks": len(self.model.gather_banks),
+            "pre_banks": len(self.model.pre_banks),
+            "prefilter": pstats,
+        }
+        if timing:
+            summary["tier_p50_ms"] = timing
+        return summary
 
     # -- host twins of the device stages --------------------------------------
 
@@ -998,21 +1060,27 @@ class WafEngine:
     # -- warm-up -----------------------------------------------------------
 
     def batch_signature(self, requests: list[HttpRequest], max_phase: int = 2) -> tuple:
-        """The shape signature the given batch would run under (tier shapes,
-        masks, cached-row shapes, numvals shape, phase bound)."""
+        """The shape signature the given batch would run under (the
+        ``EXEC_CACHE`` key: model layout, tier shapes, masks, cached-row
+        shapes, numvals shape, phase bound)."""
+        from .compile_cache import batch_signature
+
         tiers, numvals, masks, cached, _mkeys, lease = self._batch_tensors(requests)
         if lease is not None:
             lease.release()  # shapes only; nothing dispatched
-        return self._signature(tiers, numvals, masks, cached, max_phase)
+        return batch_signature(self.model, tiers, numvals, masks, cached, max_phase)
 
     def prewarm(self, requests: list[HttpRequest] | None = None) -> dict:
         """Run the given batch's window once (default: the canonical
         warmup request), plus a synthetic ``CKO_PREWARM_BATCH``-request
-        window when that is set, so first-use costs (kernel builds, the
-        allocator, cuDNN's algorithm choice) are paid off the serving path.
-        PyTorch has no executable to compile ahead of time; what this
-        records is the windows' shape signatures. Returns ``{"compiled":
-        a new signature was warmed, "wall_s": seconds}``."""
+        window when that is set, unless its signature already ran in this
+        process, so first-use costs (kernel builds, the allocator, cuDNN's
+        algorithm choice) are paid off the serving path. PyTorch has no
+        executable to compile ahead of time; each window run here is
+        booked in ``EXEC_CACHE`` (``compile_s``). Returns ``{"compiled": a
+        window ran, "wall_s": seconds}``."""
+        from .compile_cache import EXEC_CACHE
+
         if requests is None:
             requests = [warmup_request()]
         t0 = time.perf_counter()
@@ -1025,12 +1093,13 @@ class WafEngine:
         compiled = False
         for batch in batches:
             sig = self.batch_signature(batch)
-            if sig not in self._signatures:
+            if not EXEC_CACHE.resident(sig):
                 compiled = True
+                t1 = time.perf_counter()
                 self.collect(self.prepare(batch))
                 # prepare dispatches a Reject window without its over-limit
                 # rows, under another signature: record the batch's too.
-                self._signatures.add(sig)
+                EXEC_CACHE.record_warm(sig, time.perf_counter() - t1)
         return {"compiled": compiled, "wall_s": time.perf_counter() - t0}
 
     # -- phase-split serving -------------------------------------------------

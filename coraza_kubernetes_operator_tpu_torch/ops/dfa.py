@@ -275,7 +275,8 @@ def scan_dense_tier(tier: DenseTier, inputs, on) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"scan_dense_tier: unsupported device {dev}")
     out, n = launch_tier(tier, inputs, on, "cko_scan_dense")
-    LAUNCHES += n
+    with kernels.COUNT_LOCK:
+        LAUNCHES += n
     return out
 
 

@@ -441,5 +441,6 @@ def scan_flat_bank(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
         ]
         fn = kernels.function("dfa_scan", "cko_scan_flat", [type(a) for a in args])
         kernels.check(fn(*args), "dfa_scan", "cko_scan_flat")
-    LAUNCHES += len(lay.launches)
+    with kernels.COUNT_LOCK:
+        LAUNCHES += len(lay.launches)
     return out

@@ -200,7 +200,8 @@ def scan_gather_tier(tier: GatherTier, inputs, on) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"scan_gather_tier: unsupported device {dev}")
     out, n = launch_tier(tier, inputs, on, "cko_scan_gather", extra=(kernels.ptr(tier.cmaps),))
-    LAUNCHES += n
+    with kernels.COUNT_LOCK:
+        LAUNCHES += n
     return out
 
 

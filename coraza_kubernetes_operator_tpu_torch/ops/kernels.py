@@ -7,7 +7,9 @@ repository root, named by a hash of the sources, and are built at first
 use: importing this module never needs ``nvcc`` or a card.
 
 Launchers return ``cudaGetLastError()`` after the launch; ``check``
-raises on anything but 0. Pointers and the stream go through
+raises on anything but 0. Each wrapper counts its launches in its
+module's ``LAUNCHES`` under ``COUNT_LOCK`` (several host threads launch
+in the sidecar, and ``+=`` on a module global is not atomic). Pointers and the stream go through
 ``ctypes.c_void_p`` (a bare Python int would be cut to 32 bits).
 """
 
@@ -29,6 +31,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+COUNT_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[str, object] = {}
 

@@ -289,5 +289,6 @@ def finals_match(embed, suffix, lengths, tables: FinalsTables, *, q: int) -> tor
     ]
     fn = kernels.function("segment_finals", "cko_finals_match", [type(a) for a in args])
     kernels.check(fn(*args), "segment_finals", "cko_finals_match")
-    LAUNCHES += 1
+    with kernels.COUNT_LOCK:
+        LAUNCHES += 1
     return out

@@ -1,0 +1,2800 @@
+"""Engine sidecar HTTP server (port of ``sidecar/server.py``), serving
+verdicts from the card unless ``SidecarConfig.device`` asks for the CPU.
+
+Two serving surfaces, mirroring how the reference data plane is consumed
+(SURVEY §3.4 — Envoy filter semantics; integration assertions ExpectBlocked
+403 / ExpectAllowed 200, reference ``test/framework/traffic.go:109-120``):
+
+- **Filter mode** (any path outside ``/waf/v1/``): the *inbound request
+  itself* is evaluated. Blocked → the rule's status (403); allowed → 200
+  with ``x-waf-action: allow``. This is the drop-in stand-in for the Envoy
+  filter in front of an upstream.
+- **Bulk mode** (``POST /waf/v1/evaluate``): a JSON object
+  ``{"requests": [...]}`` of serialized requests evaluated in one call —
+  the high-throughput path for replayers and load generators, and the
+  shape the benchmarks use.
+
+Control endpoints: ``/waf/v1/healthz`` (liveness: the process answers),
+``/waf/v1/readyz`` (readiness: 503 while no ruleset is loaded or the
+serving mode is ``broken`` — Kubernetes stops routing to a dead sidecar
+instead of feeding it 500s), ``/waf/v1/stats`` (batcher + reloader +
+rollout counters), and ``POST /waf/v1/rollback`` (force the serving
+engine back to the last-known-good ring entry — docs/ROLLOUT.md).
+
+``failurePolicy`` (reference ``api/v1alpha1/engine_types.go:153-166``, which
+the reference stores but never forwards — SURVEY §5): with no loaded
+ruleset, ``fail`` (fail-closed) answers 503, ``allow`` (fail-open) passes
+requests through unevaluated.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import os
+import tempfile
+import threading
+import time as _time
+from concurrent.futures import Future
+from concurrent.futures import TimeoutError as FutTimeout
+from dataclasses import dataclass
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import sys
+
+from ..engine.request import HttpRequest
+from ..engine.waf import Verdict, WafEngine
+from ..observability import AuditLogger, MetricsRegistry, TraceRecorder
+from ..observability.audit import AuditRecord
+from ..utils import get_logger
+from .batcher import (
+    DEFAULT_MAX_BATCH_DELAY_MS,
+    DEFAULT_MAX_BATCH_SIZE,
+    LANE_BULK,
+    LANE_INTERACTIVE,
+    LANES,
+    EngineUnavailable,
+    MicroBatcher,
+    classify_lane,
+)
+from .degraded import (
+    BREAKER_CODES,
+    MODE_BROKEN,
+    MODE_CODES,
+    BreakerOpen,
+    CircuitBreaker,
+    DegradedModeManager,
+    DeviceLossManager,
+    Overloaded,
+)
+from .degraded import is_device_loss
+from .governor import (
+    BadContentLength,
+    BodyTooLarge,
+    IngressGovernor,
+    MemoryShed,
+    TenantShed,
+)
+from .scheduler import AdaptiveScheduler
+from .quarantine import PoisonBisector, QuarantineRegistry
+from .verdict_cache import VerdictCache
+from .reloader import DEFAULT_POLL_INTERVAL_S
+from .rollout import RolloutConfig, RolloutManager
+from .state_store import StateStore
+from .tenants import TENANT_HEADER, TenantManager
+
+log = get_logger("sidecar.server")
+
+
+def _exec_cache_stats() -> dict:
+    from ..engine.compile_cache import EXEC_CACHE
+
+    return EXEC_CACHE.stats()
+
+
+def _device_type(device) -> str:
+    """``cuda`` or ``cpu``: the type of ``SidecarConfig.device`` (None is
+    the card), read without initializing a CUDA context."""
+    import torch
+
+    return "cuda" if device is None else torch.device(device).type
+
+
+def _build_info_labels(device) -> dict:
+    """Label set for the cko_build_info gauge: the package version, the
+    torch version, the CUDA runtime torch was built for
+    (``torch.version.cuda``, ``none`` on a CPU-only build) and the
+    serving device's type as ``platform`` (``cuda`` or ``cpu``). The
+    platform comes from the config's device (None means the card), so
+    rendering metrics never initializes a CUDA context. This label set
+    differs from the JAX package's (``jax``, ``jaxlib``, ``platform``)."""
+    import torch
+
+    from .. import __version__
+
+    return {
+        "version": __version__,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda or "none",
+        "platform": _device_type(device),
+    }
+
+
+def _all_threads():
+    """A profiler config that records the ops of every thread (the
+    batcher's windows run off the HTTP thread that starts the session);
+    None where this torch lacks the option: CUDA kernels are recorded
+    device-wide either way, host ops then only on the starting thread."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
+def _process_rss_bytes() -> float:
+    """Resident set size via /proc (no psutil dependency); 0 where
+    procfs is unavailable."""
+    try:
+        with open("/proc/self/statm", encoding="ascii") as f:
+            pages = int(f.read().split()[1])
+        return float(pages * os.sysconf("SC_PAGE_SIZE"))
+    except (OSError, ValueError, IndexError):
+        return 0.0
+
+
+def _process_open_fds() -> float:
+    try:
+        return float(len(os.listdir("/proc/self/fd")))
+    except OSError:
+        return 0.0
+
+
+API_PREFIX = "/waf/v1/"
+FAILURE_POLICY_FAIL = "fail"
+FAILURE_POLICY_ALLOW = "allow"
+# Per-request deadline propagation: milliseconds the caller is willing to
+# wait for a verdict. Degraded-mode serving guarantees an answer inside
+# it (fallback evaluator when the device path cannot make the deadline).
+DEADLINE_HEADER = "X-CKO-Deadline-Ms"
+
+
+@dataclass
+class SidecarConfig:
+    """Mirrors the args the Engine controller passes to the Deployment
+    (``controlplane/engine_controller.py:build_tpu_engine_deployment``)."""
+
+    cache_base_url: str = "http://127.0.0.1:18080"
+    # One or more RuleSet cache keys, comma-separated. The first is the
+    # default tenant; filter-mode requests select others via the
+    # X-Waf-Tenant header, bulk requests via a per-request "tenant" field.
+    instance_key: str = "default/ruleset"
+    poll_interval_s: float = DEFAULT_POLL_INTERVAL_S
+    failure_policy: str = FAILURE_POLICY_FAIL
+    max_batch_size: int = DEFAULT_MAX_BATCH_SIZE
+    max_batch_delay_ms: float = DEFAULT_MAX_BATCH_DELAY_MS
+    # Pipelined dispatch (docs/PIPELINE.md): max windows in flight on
+    # device while the batcher assembles the next (double buffering).
+    # None reads CKO_PIPELINE_DEPTH (default 2); 1 reverts to the
+    # synchronous alternate-host-and-device loop.
+    pipeline_depth: int | None = None
+    host: str = "0.0.0.0"
+    port: int = 9090
+    # Ingest frontend (docs/SERVING.md): "async" is the asyncio-native
+    # single-acceptor loop with keep-alive + pipelining and zero-copy
+    # window assembly straight into the native batch-blob format;
+    # "threaded" is the legacy ThreadingHTTPServer (one thread per
+    # connection) kept as an escape hatch and as the parity reference.
+    frontend: str = "async"
+    # Per-request verdict wait budget. None reads CKO_REQUEST_TIMEOUT_S
+    # (default 30). Resolved once at startup; the resolved float is
+    # written back onto this field so every reader sees one value.
+    request_timeout_s: float | None = None
+    # Dispatch watchdog (docs/DEGRADED_MODE.md): per-window device
+    # deadline. None reads CKO_WINDOW_DEADLINE_S; unset = auto (~10x the
+    # warm p99 step latency, armed only once the engine is warmed and
+    # enough samples exist); <= 0 disables the watchdog.
+    window_deadline_s: float | None = None
+    # First-evaluation budget while an engine's XLA executables are still
+    # compiling (VERDICT r4 missing #2: request_timeout_s fired mid-compile
+    # and the bulk path 500'd on a freshly started CRS-scale sidecar).
+    # Until an engine has completed one device batch, waits use this
+    # budget instead of request_timeout_s; after warmup the strict
+    # request timeout applies.
+    compile_timeout_s: float = 600.0
+    # Warmed engines can still hit a fresh-shape recompile mid-stream (a
+    # first long-body request mints a new tier bucket). While the batcher
+    # is actively evaluating, waits extend past request_timeout_s by at
+    # most this grace — bounded so a wedged device step fails requests in
+    # timeout+grace, not compile_timeout_s.
+    recompile_grace_s: float = 120.0
+    # Audit log: None disables, "-" is stdout (the reference data plane's
+    # SecAuditLog /dev/stdout shape), anything else a file path.
+    audit_log: str | None = None
+    audit_relevant_only: bool = True
+    # Evaluate phase-1 rules on headers before body ingest (early denial
+    # without body tensorization — the reference data plane's phase
+    # ordering, SURVEY §3.4). Costs a second device pass per window when
+    # any phase-1 rule exists; disable for single-pass throughput.
+    phase_split: bool = False
+    # Bearer token required on /waf/v1/metrics when set (the serving
+    # listener is the data plane, so the metrics path is the only
+    # operator-facing surface on it — reference parity: metrics behind
+    # authn/authz, cmd/main.go:123-177).
+    metrics_auth_token: str | None = None
+    # Honor X-Waf-Tenant (filter mode) and per-request/header tenant
+    # selection (bulk mode). Off by default: both surfaces share the same
+    # unauthenticated listener, so tenant selection from request content
+    # would let anyone who can reach the port probe arbitrary tenants'
+    # rulesets (or pick a lenient tenant — a WAF bypass). Enable only when
+    # a trusted proxy in front sets/strips the header.
+    trust_tenant_header: bool = False
+    # -- degraded-mode serving (docs/DEGRADED_MODE.md) ----------------------
+    # Host fallback evaluator: serve every request from the no-JAX scalar
+    # path while the engine's XLA executables compile (cold -> fallback ->
+    # promoted) and whenever the circuit breaker is open. Disabling
+    # reverts to the legacy wait-out-the-compile behavior.
+    fallback_enabled: bool = True
+    # Queue admission control: when the batcher backlog exceeds this many
+    # queued requests, new device-path requests are shed with 429 +
+    # Retry-After instead of growing an unbounded queue. Negative
+    # disables shedding.
+    queue_budget: int = 4096
+    shed_retry_after_s: float = 1.0
+    # Concurrent host-fallback evaluations admitted before shedding (the
+    # fallback runs on handler threads; unbounded concurrency on a small
+    # host would thrash). Negative disables.
+    fallback_inflight_budget: int = 64
+    # Circuit breaker: consecutive device failures before opening, and
+    # the cooldown before a half-open re-probe.
+    breaker_threshold: int = 3
+    breaker_cooldown_s: float = 30.0
+    # -- ingress governance (docs/SERVING.md "Overload & limits") -----------
+    # Shared by both frontends via sidecar.governor. None fields read
+    # their CKO_INGRESS_* env var (see sidecar/governor.py):
+    # CKO_INGRESS_MAX_CONNS (1024), CKO_INGRESS_HEADER_TIMEOUT_S (10),
+    # CKO_INGRESS_IDLE_TIMEOUT_S (75), CKO_INGRESS_BODY_TIMEOUT_S (30),
+    # CKO_INGRESS_WRITE_TIMEOUT_S (20), CKO_INGRESS_MAX_BODY_BYTES
+    # (10 MiB), CKO_INGRESS_MEMORY_BUDGET_BYTES (256 MiB). Timeouts of 0
+    # disable; negative caps/budgets disable.
+    max_connections: int | None = None
+    header_timeout_s: float | None = None
+    idle_timeout_s: float | None = None
+    body_timeout_s: float | None = None
+    write_timeout_s: float | None = None
+    max_body_bytes: int | None = None
+    ingress_memory_budget_bytes: int | None = None
+    # Shutdown drain budget: seconds stop() waits for in-flight ingest
+    # windows to resolve before force-closing remaining connections
+    # (force-closes are counted in cko_ingest_aborted_total).
+    drain_timeout_s: float = 2.0
+    # -- crash-safe warm restart (docs/RECOVERY.md) --------------------------
+    # Durable serving-state directory: the serving ruleset document, the
+    # last-known-good ring, and rollout latches persist here on every
+    # promote/swap/rollback, and a restart restores them BEFORE the first
+    # cache poll. None reads CKO_STATE_DIR; empty/unset disables.
+    state_dir: str | None = None
+    # Graceful-termination budget: on SIGTERM readyz flips to 503
+    # immediately, then in-flight + queued windows drain within this many
+    # seconds (host fallback when the device path is gone) before the
+    # process exits. None reads CKO_DRAIN_BUDGET_S (default 10).
+    drain_budget_s: float | None = None
+    # -- staged ruleset rollout (docs/ROLLOUT.md) ----------------------------
+    # Hot reloads stage a candidate in a budgeted background compile,
+    # shadow-verify it on mirrored live traffic, and promote only after N
+    # clean windows (auto-rollback on divergence/fault/latency). Disabling
+    # reverts to the legacy compile-gate-swap reload path.
+    rollout_enabled: bool = True
+    # None fields read their CKO_* env var (see sidecar/rollout.py):
+    # CKO_COMPILE_BUDGET_S, CKO_SHADOW_SAMPLE_RATE,
+    # CKO_SHADOW_PROMOTE_WINDOWS, CKO_SHADOW_DIVERGE_THRESHOLD,
+    # CKO_SHADOW_LATENCY_RATIO, CKO_SHADOW_IDLE_S, CKO_ROLLOUT_RING.
+    compile_budget_s: float | None = None
+    shadow_sample_rate: float | None = None
+    shadow_promote_windows: int | None = None
+    shadow_diverge_threshold: float | None = None
+    shadow_latency_ratio: float | None = None
+    shadow_idle_check_s: float | None = None
+    rollout_ring_depth: int | None = None
+    # -- pipeline flight recorder (docs/OBSERVABILITY.md) --------------------
+    # Probability a request WITHOUT a traceparent header is traced; a
+    # request carrying the header is always recorded when the rate is
+    # > 0 (and always gets its response traceparent echoed, even at 0).
+    # None reads CKO_TRACE_SAMPLE_RATE (default 0.0 = recorder off: no
+    # hot-path cost beyond one attribute read).
+    trace_sample_rate: float | None = None
+    # Max completed traces retained in the flight-recorder ring. None
+    # reads CKO_TRACE_RING (default 512).
+    trace_ring: int | None = None
+    # Audit-log size cap: keep-1 rotation for path-backed audit logs
+    # once the live file would exceed this many bytes. None reads
+    # CKO_AUDIT_MAX_BYTES (default 0 = unbounded).
+    audit_max_bytes: int | None = None
+    # -- Envoy ext_proc data plane (docs/EXTPROC.md) -------------------------
+    # gRPC ExternalProcessor listener port. None reads CKO_EXTPROC_PORT;
+    # unset/empty keeps the surface closed (the default — it only opens
+    # when an operator or the Engine controller asks for it). 0 binds an
+    # ephemeral port (tests). The resolved bound port is written back.
+    extproc_port: int | None = None
+    # "auto" serves via grpcio when importable and falls back to the
+    # dependency-free HTTP/2 subset otherwise; pin with "native" /
+    # "grpcio" (or CKO_EXTPROC_IMPL while the field stays "auto").
+    extproc_impl: str = "auto"
+    # -- overload isolation (docs/SERVING.md "Priority lanes & fairness") ----
+    # Headers-only/interactive lane micro-batch delay. None reads
+    # CKO_LANE_DELAY_MS; unset keeps it equal to max_batch_delay_ms (the
+    # lanes then differ only in queueing, not window timing). The
+    # resolved value is written back onto this field.
+    lane_delay_ms: float | None = None
+    # Weighted-fair tenant admission table ("tenantA=3,tenantB=1"). None
+    # reads CKO_TENANT_WEIGHTS; unknown tenants weigh 1.0.
+    tenant_weights: str | None = None
+    # Latency SLO the adaptive scheduler steers the batching knobs
+    # toward. None reads CKO_SLO_P99_MS (default 50).
+    slo_p99_ms: float | None = None
+    # Adaptive scheduler (sidecar/scheduler.py) kill switch: False keeps
+    # every knob exactly where the config put it (--disable-adaptive).
+    adaptive_enabled: bool = True
+    # Controller tick period. None reads CKO_SCHED_INTERVAL_S (0.5).
+    sched_interval_s: float | None = None
+    # Device the engines serve on: None is the card (``cuda``); the CPU
+    # only when the caller asks for it (``"cpu"``, as the tests do).
+    device: str | None = None
+
+
+def request_from_json(obj: dict) -> HttpRequest:
+    headers = obj.get("headers", [])
+    if isinstance(headers, dict):
+        headers = list(headers.items())
+    body = obj.get("body", "")
+    if isinstance(body, str):
+        body = body.encode("utf-8", "replace")
+    return HttpRequest(
+        method=obj.get("method", "GET"),
+        uri=obj.get("uri", "/"),
+        version=obj.get("version", "HTTP/1.1"),
+        headers=[(str(k), str(v)) for k, v in headers],
+        body=body,
+        remote_addr=obj.get("remote_addr", ""),
+    )
+
+
+def verdict_to_json(v: Verdict) -> dict:
+    return {
+        "interrupted": v.interrupted,
+        "status": v.status,
+        "rule_id": v.rule_id,
+        "matched_ids": v.matched_ids,
+        "scores": v.scores,
+    }
+
+
+def _json_reply(status: int, obj, headers: dict | None = None) -> tuple[int, bytes, dict]:
+    h = {"Content-Type": "application/json"}
+    h.update(headers or {})
+    return status, json.dumps(obj).encode(), h
+
+
+# Probe/operator paths the byte-ledger shed never applies to (parity
+# with the async frontend's _CONTROL_TARGETS).
+_CONTROL_PATHS = {
+    API_PREFIX + "healthz",
+    API_PREFIX + "readyz",
+    API_PREFIX + "stats",
+    API_PREFIX + "metrics",
+    API_PREFIX + "rollback",
+    API_PREFIX + "quarantine/flush",
+    API_PREFIX + "cache/flush",
+    API_PREFIX + "trace",
+    API_PREFIX + "profile",
+}
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    server_version = "cko-tpu-engine"
+
+    @property
+    def sidecar(self) -> "TpuEngineSidecar":
+        return self.server.sidecar  # type: ignore[attr-defined]
+
+    def log_message(self, fmt: str, *args) -> None:
+        log.debug("http " + fmt % args)
+
+    def handle(self) -> None:
+        """Connection governance for the threaded escape hatch: the same
+        global cap the async frontend enforces (one governor), plus the
+        idle timeout as a socket timeout so a quiet or trickling peer
+        cannot pin a handler thread forever."""
+        gov = self.sidecar.governor
+        if not gov.try_admit_conn():
+            try:
+                payload = b"too many connections\n"
+                self.wfile.write(
+                    b"HTTP/1.1 503 Service Unavailable\r\n"
+                    b"Content-Type: text/plain\r\n"
+                    b"Content-Length: " + str(len(payload)).encode() + b"\r\n"
+                    b"Connection: close\r\n\r\n" + payload
+                )
+            except Exception:
+                pass
+            self.close_connection = True
+            return
+        try:
+            if gov.idle_timeout_s > 0:
+                self.connection.settimeout(gov.idle_timeout_s)
+            super().handle()
+        finally:
+            gov.release_conn()
+
+    def _reply(self, status: int, payload: bytes, headers: dict | None = None) -> None:
+        self.send_response(status)
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.send_header("Content-Length", str(len(payload)))
+        self.end_headers()
+        self.wfile.write(payload)
+
+    def _reply_json(self, status: int, obj, headers: dict | None = None) -> None:
+        h = {"Content-Type": "application/json"}
+        h.update(headers or {})
+        self._reply(status, json.dumps(obj).encode(), h)
+
+    def _is_control(self) -> bool:
+        return self.path.split("?", 1)[0] in _CONTROL_PATHS
+
+    def _read_body(self) -> bytes:
+        # A WAF must see the body however it is framed: chunked bodies are
+        # decoded (not evaluating them would be a rule bypass, and leaving
+        # them unread desyncs HTTP/1.1 keep-alive framing). Governance
+        # (same taxonomy as the async frontend): unparsable
+        # Content-Length → BadContentLength (400, previously an uncaught
+        # ValueError that silently dropped the connection), declared size
+        # over the ceiling → BodyTooLarge (413) before any buffering,
+        # byte-ledger exhaustion → MemoryShed (429, control paths exempt).
+        gov = self.sidecar.governor
+        if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
+            if not self._is_control() and not gov.can_admit(0):
+                gov.count("shed_total")
+                raise MemoryShed
+            return self._read_chunked(gov.max_body_bytes)
+        raw = self.headers.get("Content-Length")
+        if raw is None or not raw.strip():
+            return b""
+        try:
+            length = int(raw)
+            if length < 0:
+                raise ValueError
+        except ValueError:
+            raise BadContentLength from None
+        if length == 0:
+            return b""
+        if 0 <= gov.max_body_bytes < length:
+            raise BodyTooLarge
+        if not self._is_control() and not gov.can_admit(length):
+            gov.count("shed_total")
+            raise MemoryShed
+        return self.rfile.read(length)
+
+    def _read_chunked(self, max_body: int = -1) -> bytes:
+        chunks: list[bytes] = []
+        total = 0
+        while True:
+            size_line = self.rfile.readline(65536).strip()
+            try:
+                size = int(size_line.split(b";", 1)[0], 16)
+            except ValueError:
+                # Lenient decode: evaluate what arrived, but the framing
+                # is now unknowable — close after answering.
+                self.close_connection = True
+                break
+            if size < 0:
+                self.close_connection = True
+                break
+            if size == 0:
+                # Trailers until blank line.
+                while self.rfile.readline(65536).strip():
+                    pass
+                break
+            total += size
+            if 0 <= max_body < total:
+                # Streaming enforcement: declared chunk sizes alone trip
+                # the ceiling — the rest is never buffered.
+                raise BodyTooLarge
+            data = self.rfile.read(size)
+            chunks.append(data)
+            if len(data) < size:  # truncated mid-chunk
+                self.close_connection = True
+                break
+            self.rfile.readline(65536)  # CRLF after chunk data
+        return b"".join(chunks)
+
+    # -- dispatch ------------------------------------------------------------
+
+    def do_GET(self) -> None:  # noqa: N802
+        path = self.path.split("?", 1)[0]
+        if path == API_PREFIX + "healthz":
+            self._handle_healthz()
+        elif path == API_PREFIX + "readyz":
+            self._handle_readyz()
+        elif path == API_PREFIX + "stats":
+            self._reply_json(200, self.sidecar.stats())
+        elif path == API_PREFIX + "metrics":
+            self._reply(
+                *self.sidecar.metrics_reply(self.headers.get("Authorization"))
+            )
+        elif path == API_PREFIX + "trace":
+            query = self.path.split("?", 1)[1] if "?" in self.path else ""
+            self._reply(*self.sidecar.trace_reply(query))
+        elif path.startswith(API_PREFIX):
+            self._reply_json(404, {"error": "not found"})
+        else:
+            self._handle_filter(b"")
+
+    def do_POST(self) -> None:  # noqa: N802
+        gov = self.sidecar.governor
+        path = self.path.split("?", 1)[0]
+        tenant = None
+        if self.sidecar.config.trust_tenant_header and path not in _CONTROL_PATHS:
+            tenant = self.headers.get(TENANT_HEADER) or None
+        try:
+            body = self._read_body()
+        except BadContentLength:
+            self.close_connection = True
+            self._reply(400, b"bad content-length\n", {"Content-Type": "text/plain"})
+            return
+        except BodyTooLarge:
+            gov.count("body_limit_total")
+            self.close_connection = True
+            self._reply(
+                413, b"request body too large\n", {"Content-Type": "text/plain"}
+            )
+            return
+        except MemoryShed:
+            self.close_connection = True
+            err = Overloaded(
+                "ingress memory budget exceeded",
+                retry_after_s=self.sidecar.shed_retry_after(),
+            )
+            self._reply(*self.sidecar.overloaded_reply(err, as_json=False))
+            return
+        except TimeoutError:
+            gov.count("deadline_closed_total")
+            self.close_connection = True
+            try:
+                self._reply(
+                    408, b"request body timeout\n", {"Content-Type": "text/plain"}
+                )
+            except Exception:
+                pass
+            return
+        except ConnectionError:
+            self.close_connection = True
+            return
+        # Tenant-scoped shed BEFORE the global ledger admits:
+        # under memory pressure the tenant over its weighted fair share
+        # 429s while everyone else rides the remaining headroom. Same
+        # taxonomy bytes as the global shed.
+        if gov.tenant_over_share(tenant, len(body)):
+            gov.count_tenant_shed(tenant)
+            self.sidecar.count_shed()
+            err = Overloaded(
+                f"tenant {tenant!r} over weighted fair share",
+                retry_after_s=self.sidecar.shed_retry_after(),
+            )
+            self._reply(*self.sidecar.overloaded_reply(err, as_json=False))
+            return
+        gov.charge(len(body), tenant=tenant)
+        try:
+            if path == API_PREFIX + "evaluate":
+                self._handle_bulk(body)
+            elif path == API_PREFIX + "rollback":
+                self._handle_rollback(body)
+            elif path == API_PREFIX + "quarantine/flush":
+                self._reply(*self.sidecar.quarantine_flush_reply(body))
+            elif path == API_PREFIX + "cache/flush":
+                self._reply(*self.sidecar.cache_flush_reply(body))
+            elif path == API_PREFIX + "profile":
+                self._reply(
+                    *self.sidecar.profile_reply(
+                        self.headers.get("Authorization"), body
+                    )
+                )
+            elif path.startswith(API_PREFIX):
+                self._reply_json(404, {"error": "not found"})
+            else:
+                self._handle_filter(body)
+        finally:
+            gov.discharge(len(body), tenant=tenant)
+
+    do_PUT = do_PATCH = do_DELETE = do_POST  # noqa: N815
+
+    # -- handlers ------------------------------------------------------------
+
+    def _handle_healthz(self) -> None:
+        # Liveness only: the process is up and answering. Readiness
+        # (ruleset loaded, device/fallback path serviceable) moved to
+        # /waf/v1/readyz — a liveness probe that fails on "no ruleset
+        # yet" makes Kubernetes restart a healthy pod mid-compile.
+        self._reply(200, b"ok\n", {"Content-Type": "text/plain"})
+
+    def _handle_readyz(self) -> None:
+        self._reply(*self.sidecar.readyz_reply())
+
+    def _handle_rollback(self, body: bytes) -> None:
+        self._reply(*self.sidecar.rollback_reply(body))
+
+    def _deadline_s(self) -> float | None:
+        """Absolute monotonic deadline from the X-CKO-Deadline-Ms header."""
+        raw = self.headers.get(DEADLINE_HEADER)
+        if not raw:
+            return None
+        try:
+            ms = float(raw)
+        except ValueError:
+            return None
+        if ms <= 0:
+            return None
+        return _time.monotonic() + ms / 1e3
+
+    def _handle_filter(self, body: bytes) -> None:
+        # Flight recorder (docs/OBSERVABILITY.md): parse/mint the W3C
+        # trace context BEFORE evaluation so the span rides the batcher
+        # item; the response traceparent is echoed even when sampling is
+        # off (non-recording context — byte-identical to the async
+        # frontend's echo for the same inbound header).
+        t_accept = _time.monotonic()
+        ctx = self.sidecar.tracer.start(
+            self.headers.get("traceparent"), t_accept=t_accept
+        )
+        req = HttpRequest(
+            method=self.command,
+            uri=self.path,
+            version=self.request_version,
+            headers=[(k, v) for k, v in self.headers.items()],
+            body=body,
+            remote_addr=self.client_address[0],
+        )
+        tenant = None
+        if self.sidecar.config.trust_tenant_header:
+            tenant = self.headers.get(TENANT_HEADER) or None
+        if ctx is not None:
+            # http.server already parsed the head before do_* ran, so
+            # accept and parse collapse onto the handler entry point.
+            ctx.event("accept", t_accept, t_accept, track="frontend")
+            ctx.event("parse", t_accept, _time.monotonic(), track="frontend")
+        status, payload, headers = self.sidecar.filter_reply(
+            req, tenant=tenant, deadline_s=self._deadline_s(), span=ctx
+        )
+        if ctx is not None:
+            headers = {**(headers or {}), "traceparent": ctx.response_traceparent()}
+            t_reply = _time.monotonic()
+            ctx.event("reply", t_reply, t_reply, track="frontend")
+            self.sidecar.tracer.commit(ctx)
+        self._reply(status, payload, headers)
+
+    def _handle_bulk(self, body: bytes) -> None:
+        self._reply(
+            *self.sidecar.bulk_reply(
+                body,
+                tenant_header=self.headers.get(TENANT_HEADER),
+                deadline_s=self._deadline_s(),
+            )
+        )
+
+
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    allow_reuse_address = True
+
+
+class TpuEngineSidecar:
+    """Wires reloader + batcher + HTTP server; the deployable unit."""
+
+    def __init__(self, config: SidecarConfig, engine: WafEngine | None = None):
+        self.config = config
+        self._start_time = _time.time()
+        # Durable serving state (docs/RECOVERY.md): snapshots land here on
+        # every promote/swap/rollback; boot restores from them before the
+        # first cache poll. Disabled unless state_dir/CKO_STATE_DIR is set.
+        self.state_store = StateStore(config.state_dir)
+        if config.drain_budget_s is not None:
+            self.drain_budget_s = float(config.drain_budget_s)
+        else:
+            try:
+                self.drain_budget_s = float(
+                    os.environ.get("CKO_DRAIN_BUDGET_S", "") or 10.0
+                )
+            except ValueError:
+                self.drain_budget_s = 10.0
+        self._draining = False
+        # Ingress governance (docs/SERVING.md "Overload & limits"): ONE
+        # governor shared by whichever frontend serves — connection cap,
+        # read deadlines, body ceiling, and the in-flight byte ledger are
+        # frontend-independent invariants. Constructed before the
+        # frontend so both can capture it.
+        self.governor = IngressGovernor(
+            max_connections=config.max_connections,
+            header_timeout_s=config.header_timeout_s,
+            idle_timeout_s=config.idle_timeout_s,
+            body_timeout_s=config.body_timeout_s,
+            write_timeout_s=config.write_timeout_s,
+            max_body_bytes=config.max_body_bytes,
+            memory_budget_bytes=config.ingress_memory_budget_bytes,
+            tenant_weights=config.tenant_weights,
+        )
+        keys = [k.strip() for k in config.instance_key.split(",") if k.strip()]
+        # Staged ruleset rollout (docs/ROLLOUT.md): budgeted background
+        # candidate compiles, shadow-traffic verification against the
+        # serving engine, automatic rollback. One manager serves all
+        # tenants (one mirror router, one outcome ledger).
+        self.rollout: RolloutManager | None = None
+        if config.rollout_enabled:
+            self.rollout = RolloutManager(
+                RolloutConfig(
+                    compile_budget_s=config.compile_budget_s,
+                    sample_rate=config.shadow_sample_rate,
+                    promote_windows=config.shadow_promote_windows,
+                    diverge_threshold=config.shadow_diverge_threshold,
+                    latency_ratio=config.shadow_latency_ratio,
+                    idle_check_s=config.shadow_idle_check_s,
+                    ring_depth=config.rollout_ring_depth,
+                )
+            )
+        self.tenants = TenantManager(
+            cache_base_url=config.cache_base_url,
+            tenant_keys=keys or ["default/ruleset"],
+            poll_interval_s=config.poll_interval_s,
+            engine_factory=functools.partial(WafEngine, device=config.device),
+            # Kick background device promotion the moment a (re)loaded
+            # engine swaps in — traffic flows from the host fallback until
+            # its first device batch lands. Late-bound: self.degraded is
+            # constructed below.
+            on_swap=lambda engine: self._on_engine_swap(engine),
+            rollout=self.rollout,
+            # Persist the serving state on every promote/swap/rollback —
+            # the crash-consistency point for warm restarts.
+            on_persist=self._persist_state,
+        )
+        if engine is not None:  # pre-seeded (tests / static rules)
+            self.tenants.seed(self.tenants.default_tenant, engine)
+        # Priority lanes (docs/SERVING.md "Priority lanes & fairness"):
+        # the interactive (headers-only) lane's window delay resolves
+        # config field -> CKO_LANE_DELAY_MS -> None (= same as the bulk
+        # lane's max_batch_delay_ms); the batcher's submit queues apply
+        # the governor's tenant weights via deficit round-robin.
+        if config.lane_delay_ms is None:
+            raw = os.environ.get("CKO_LANE_DELAY_MS", "").strip()
+            if raw:
+                try:
+                    config.lane_delay_ms = float(raw)
+                except ValueError:
+                    config.lane_delay_ms = None
+        self.batcher = MicroBatcher(
+            engine_fn=lambda tenant: self.tenants.engine_for(tenant),
+            max_batch_size=config.max_batch_size,
+            max_batch_delay_ms=config.max_batch_delay_ms,
+            phase_split=config.phase_split,
+            pipeline_depth=config.pipeline_depth,
+            lane_delay_ms=config.lane_delay_ms,
+            weight_fn=self.governor.weight_for,
+        )
+        config.lane_delay_ms = self.batcher.lane_delay_s[LANE_INTERACTIVE] * 1e3
+        # Per-lane queue budgets for admission control. Shared BY
+        # REFERENCE with the adaptive scheduler, which retunes them
+        # between their base value and base/8 under SLO pressure.
+        self.lane_queue_budgets: dict[str, int] = {
+            lane: config.queue_budget for lane in LANES
+        }
+        self.scheduler: AdaptiveScheduler | None = None
+        if config.adaptive_enabled:
+            self.scheduler = AdaptiveScheduler(
+                self.batcher,
+                slo_p99_ms=config.slo_p99_ms,
+                interval_s=config.sched_interval_s,
+                queue_budgets=self.lane_queue_budgets,
+                on_retune=self._on_retune,
+            )
+            config.slo_p99_ms = self.scheduler.slo_p99_ms
+            config.sched_interval_s = self.scheduler.interval_s
+        if self.rollout is not None:
+            # Mirror collected windows into any shadowing candidate
+            # (cheap dict probe when no rollout is active).
+            self.batcher.on_window = self.rollout.mirror_window
+            # Blob windows only materialize HttpRequests for the mirror
+            # when a rollout is actually shadowing this engine — the
+            # async zero-copy path stays zero-copy otherwise.
+            self.batcher.window_wanted = self.rollout.wants_window
+        self.metrics = MetricsRegistry()
+        self._m_requests = self.metrics.counter(
+            "waf_requests_total", "Evaluated requests by action", ("action",)
+        )
+        self._m_batches = self.metrics.counter(
+            "waf_batches_total", "Device evaluation batches"
+        )
+        self._m_batch_size = self.metrics.histogram(
+            "waf_batch_size", "Requests per device batch",
+            buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096),
+        )
+        self._m_step = self.metrics.histogram(
+            "waf_batch_step_seconds", "Device batch step latency"
+        )
+        # -- pipelined dispatch (docs/PIPELINE.md) --------------------------
+        self.metrics.gauge(
+            "cko_pipeline_depth",
+            "Configured max batch windows in flight (double buffering)",
+        ).set_function(lambda: float(self.batcher.pipeline_depth))
+        self.metrics.gauge(
+            "cko_inflight_windows",
+            "Batch windows dispatched to device but not yet collected",
+        ).set_function(lambda: float(self.batcher.inflight_windows()))
+        self._m_host_stage = self.metrics.histogram(
+            "cko_host_stage_s",
+            "Host assemble stage per window group (tensorize+tier+dispatch)",
+        )
+        self._m_device_stage = self.metrics.histogram(
+            "cko_device_stage_s",
+            "Device stage per window group (readback block + decode)",
+        )
+        self.batcher.stats.on_stage = self._on_stage
+        # -- native window pipeline + staging arena (docs/NATIVE.md) --------
+        self.metrics.gauge(
+            "cko_native_window_s",
+            "Cumulative seconds in the native blob->tensors window pipeline",
+        ).set_function(lambda: self._native_stat("window_s_total"))
+        self.metrics.gauge(
+            "cko_staging_arena_buffers",
+            "Staging-arena buffer sets currently pooled for reuse",
+        ).set_function(lambda: float(self._arena_stat("buffers")))
+        self.metrics.gauge(
+            "cko_staging_arena_reuses_total",
+            "Window exports served from a recycled staging buffer set",
+        ).set_function(lambda: float(self._arena_stat("reuses_total")))
+        self.metrics.gauge(
+            "cko_staging_arena_allocs_total",
+            "Staging buffer sets allocated (arena misses)",
+        ).set_function(lambda: float(self._arena_stat("allocs_total")))
+        # -- priority lanes + fair admission (docs/SERVING.md) --------------
+        m_lane_pending = self.metrics.gauge(
+            "cko_lane_pending",
+            "Requests queued in the lane's submit queue",
+            ("lane",),
+        )
+        m_lane_delay = self.metrics.gauge(
+            "cko_lane_delay_ms",
+            "Live micro-batch window delay per lane (scheduler-tuned)",
+            ("lane",),
+        )
+        m_lane_budget = self.metrics.gauge(
+            "cko_lane_queue_budget",
+            "Live queue-admission budget per lane (scheduler-tuned)",
+            ("lane",),
+        )
+        m_lane_windows = self.metrics.gauge(
+            "cko_lane_windows_total",
+            "Batch windows dispatched per lane",
+            ("lane",),
+        )
+        m_lane_requests = self.metrics.gauge(
+            "cko_lane_requests_total",
+            "Requests dispatched to device per lane",
+            ("lane",),
+        )
+        for lane in LANES:
+            m_lane_pending.set_function(
+                (lambda l: lambda: float(self.batcher.pending(l)))(lane),
+                lane=lane,
+            )
+            m_lane_delay.set_function(
+                (lambda l: lambda: float(self.batcher.lane_delay_s[l] * 1e3))(lane),
+                lane=lane,
+            )
+            m_lane_budget.set_function(
+                (lambda l: lambda: float(self.lane_queue_budgets[l]))(lane),
+                lane=lane,
+            )
+            m_lane_windows.set_function(
+                (lambda l: lambda: float(self.batcher.lane_windows[l]))(lane),
+                lane=lane,
+            )
+            m_lane_requests.set_function(
+                (lambda l: lambda: float(self.batcher.lane_requests[l]))(lane),
+                lane=lane,
+            )
+        self._m_lane_shed = self.metrics.counter(
+            "cko_lane_shed_total",
+            "Requests shed by per-lane queue admission (429)",
+            ("lane",),
+        )
+        # Per-tenant gauges: the label set grows as tenants appear, so
+        # values refresh from the governor ledger at render time (same
+        # idiom as cko_compile_tier_s).
+        self._m_tenant_bytes = self.metrics.gauge(
+            "cko_tenant_inflight_bytes",
+            "In-flight request bytes held per tenant",
+            ("tenant",),
+        )
+        self._m_tenant_reqs = self.metrics.gauge(
+            "cko_tenant_inflight_requests",
+            "In-flight requests charged per tenant",
+            ("tenant",),
+        )
+        self._m_tenant_shed = self.metrics.gauge(
+            "cko_tenant_shed_total",
+            "Tenant-scoped fair-share sheds (429) per tenant",
+            ("tenant",),
+        )
+        self._m_tenant_weight = self.metrics.gauge(
+            "cko_tenant_weight",
+            "Configured admission weight per active tenant",
+            ("tenant",),
+        )
+        # -- adaptive scheduler (docs/SERVING.md) ---------------------------
+        self.metrics.gauge(
+            "cko_sched_enabled",
+            "1 when the adaptive scheduler thread is tuning knobs",
+        ).set_function(
+            lambda: 1.0 if self.scheduler is not None and self.scheduler.enabled else 0.0
+        )
+        self.metrics.gauge(
+            "cko_sched_p99_ms",
+            "Step-latency p99 last observed by the scheduler",
+        ).set_function(
+            lambda: float(self.scheduler.last_p99_ms) if self.scheduler else 0.0
+        )
+        self.metrics.gauge(
+            "cko_sched_slo_ms",
+            "Configured latency SLO the scheduler steers toward",
+        ).set_function(
+            lambda: float(self.scheduler.slo_p99_ms) if self.scheduler else 0.0
+        )
+        self.metrics.gauge(
+            "cko_sched_occupancy",
+            "Queue occupancy (pending / budgets) last observed by the scheduler",
+        ).set_function(
+            lambda: float(self.scheduler.last_occupancy) if self.scheduler else 0.0
+        )
+        # Per-knob retune counts refresh at render time — knob labels
+        # only exist once the scheduler moved that knob.
+        self._m_sched_retunes = self.metrics.gauge(
+            "cko_sched_retunes_total",
+            "Knob retunes applied by the adaptive scheduler, per knob",
+            ("knob",),
+        )
+        self._m_ready = self.metrics.gauge(
+            "waf_ready", "1 when a compiled ruleset is loaded"
+        )
+        self._m_ready.set_function(lambda: 1.0 if self.ready() else 0.0)
+        self.metrics.gauge(
+            "waf_ruleset_reloads", "Successful hot reloads (all tenants)"
+        ).set_function(lambda: float(self.tenants.total_reloads))
+        self.metrics.gauge(
+            "waf_ruleset_reload_failures", "Failed hot reloads (all tenants)"
+        ).set_function(lambda: float(self.tenants.total_failed_reloads))
+        self.metrics.gauge(
+            "waf_tenants", "Resident tenant rulesets"
+        ).set_function(lambda: float(len(self.tenants.tenants)))
+        # -- degraded-mode serving ------------------------------------------
+        self._m_fallback = self.metrics.counter(
+            "cko_fallback_requests_total",
+            "Requests answered by the host fallback evaluator",
+        )
+        self._m_shed = self.metrics.counter(
+            "cko_shed_total", "Requests shed by admission control (429)"
+        )
+        self._m_failopen = self.metrics.counter(
+            "cko_failopen_total",
+            "Requests passed through unevaluated under failurePolicy allow",
+        )
+        self.degraded = DegradedModeManager(
+            fallback_enabled=config.fallback_enabled,
+            breaker=CircuitBreaker(
+                threshold=config.breaker_threshold,
+                cooldown_s=config.breaker_cooldown_s,
+            ),
+            on_fallback=lambda n: self._m_fallback.inc(n),
+            is_current=self._engine_is_current,
+        )
+        self.metrics.gauge(
+            "cko_serving_mode",
+            "Serving mode of the default tenant (0 cold, 1 fallback,"
+            " 2 promoted, 3 broken)",
+        ).set_function(
+            lambda: float(MODE_CODES[self.serving_mode()])
+        )
+        self.metrics.gauge(
+            "cko_breaker_state",
+            "Device-path circuit breaker (0 closed, 1 open, 2 half-open)",
+        ).set_function(
+            lambda: float(BREAKER_CODES[self.degraded.breaker.state])
+        )
+        # -- crash-safe warm restart (docs/RECOVERY.md) ---------------------
+        self.metrics.gauge(
+            "cko_process_start_time_seconds",
+            "Unix time this sidecar process started",
+        ).set_function(lambda: float(self._start_time))
+        self._m_restore_attempts = self.metrics.counter(
+            "cko_restore_attempts_total",
+            "Warm-restart restores attempted from a durable state snapshot",
+        )
+        self._m_restore_success = self.metrics.counter(
+            "cko_restore_success_total",
+            "Warm-restart restores that re-installed a serving engine",
+        )
+        self._m_device_lost = self.metrics.counter(
+            "cko_device_lost_total",
+            "Device losses declared (entries into the re-init state machine)",
+        )
+        self._m_drain = self.metrics.gauge(
+            "cko_drain_seconds", "Wall seconds the last graceful drain took"
+        )
+        # Persistent device-loss recovery, distinct from the transient
+        # breaker: re-put every resident engine's arrays on a fresh
+        # backend with bounded backed-off attempts; escalate to broken
+        # only on exhaustion. Recovery closes the breaker.
+        self.degraded.device_loss = DeviceLossManager(
+            engines_fn=self._resident_engine_objects,
+            on_lost=self._m_device_lost.inc,
+            on_recovered=self.degraded.breaker.record_success,
+        )
+        # -- window shape signatures (engine/compile_cache.py) --------------
+        # Process-wide: hits = window dispatches at a shape signature that
+        # ran before in this process (hot reloads and tenant engines of one
+        # layout share them), misses = first runs of a signature,
+        # cko_compile_s = seconds prewarm spent running warm-up windows.
+        # PyTorch compiles nothing, so the bypass family stays 0. Sampled
+        # at render time, same idiom as the reload counters above.
+        from ..engine.compile_cache import EXEC_CACHE
+
+        self.metrics.gauge(
+            "cko_compile_cache_hits_total",
+            "Window dispatches at a shape signature run before in this process",
+        ).set_function(lambda: float(EXEC_CACHE.hits))
+        self.metrics.gauge(
+            "cko_compile_cache_misses_total",
+            "First runs of a window shape signature",
+        ).set_function(lambda: float(EXEC_CACHE.misses))
+        self.metrics.gauge(
+            "cko_compile_s",
+            "Cumulative seconds prewarm spent running warm-up windows",
+        ).set_function(lambda: float(EXEC_CACHE.compile_s))
+        self.metrics.gauge(
+            "cko_compile_cache_entries",
+            "Distinct window shape signatures run in this process",
+        ).set_function(lambda: float(len(EXEC_CACHE)))
+        self.metrics.gauge(
+            "cko_compile_cache_bypass_total",
+            "Always 0: the port has no compiled executable to bypass",
+        ).set_function(lambda: float(EXEC_CACHE.bypasses))
+        self.metrics.gauge(
+            "cko_engine_dedup_total",
+            "Tenant engines deduped onto a resident same-ruleset engine",
+        ).set_function(lambda: float(self.tenants.engine_dedup_hits))
+        # -- static analysis (docs/ANALYSIS.md) -----------------------------
+        # Findings against the currently serving rulesets (all tenants),
+        # refreshed on every reload; the reload gate refuses swaps that
+        # introduce new error-severity findings.
+        m_findings = self.metrics.gauge(
+            "cko_analysis_findings_total",
+            "Static-analysis findings against the serving rulesets",
+            ("severity",),
+        )
+        for sev in ("error", "warn", "info"):
+            m_findings.set_function(
+                (lambda s: lambda: float(self.tenants.analysis_counts()[s]))(sev),
+                severity=sev,
+            )
+        self.metrics.gauge(
+            "cko_analyze_rejected_total",
+            "Hot reloads refused by the analysis gate (new error findings)",
+        ).set_function(lambda: float(self.tenants.total_analyze_rejected))
+        # Deterministic CompileReport ledger for the default tenant's
+        # serving ruleset: how many rules the compiler skipped off the
+        # device plan / approximated (the TPU-coverage numbers).
+        self.metrics.gauge(
+            "cko_rules_skipped_total",
+            "Rules skipped from the device plan (default tenant)",
+        ).set_function(lambda: float(self._compile_report_len("skipped")))
+        self.metrics.gauge(
+            "cko_rules_approximated_total",
+            "Rules approximated in the device plan (default tenant)",
+        ).set_function(lambda: float(self._compile_report_len("approximated")))
+        # -- staged ruleset rollout (docs/ROLLOUT.md) -----------------------
+        self.metrics.gauge(
+            "cko_rollout_state",
+            "Staged-rollout state of the default tenant (0 idle, 1 staged,"
+            " 2 shadowing, 3 promoted, 4 rolled_back, 5 failed)",
+        ).set_function(lambda: float(self._rollout_state_code()))
+        m_rollouts = self.metrics.gauge(
+            "cko_rollouts_total",
+            "Staged rollouts by terminal outcome (all tenants)",
+            ("outcome",),
+        )
+        for outcome in ("started", "promoted", "rolled_back", "failed"):
+            m_rollouts.set_function(
+                (lambda o: lambda: float(self._rollout_count(o)))(outcome),
+                outcome=outcome,
+            )
+        self.metrics.gauge(
+            "cko_rollout_shadow_windows_total",
+            "Live windows shadow-verified against rollout candidates",
+        ).set_function(
+            lambda: float(self._rollout_shadow_total("windows"))
+        )
+        self.metrics.gauge(
+            "cko_rollout_shadow_diverged_total",
+            "Shadowed requests whose candidate verdict diverged",
+        ).set_function(
+            lambda: float(self._rollout_shadow_total("diverged_requests"))
+        )
+        self.metrics.gauge(
+            "cko_rollout_shadow_dropped_total",
+            "Mirror windows dropped because a shadow queue was full",
+        ).set_function(
+            lambda: float(self._rollout_shadow_total("dropped_windows"))
+        )
+        self.metrics.gauge(
+            "cko_rollback_forced_total",
+            "Operator-forced rollbacks via POST /waf/v1/rollback",
+        ).set_function(lambda: float(self.tenants.total_rollbacks_forced))
+        self.metrics.gauge(
+            "cko_compile_inflight",
+            "Always 0: the port compiles and warms nothing in the background",
+        ).set_function(lambda: float(EXEC_CACHE.inflight))
+        # -- cold-compile collapse (docs/COMPILE_CACHE.md) ------------------
+        self.metrics.gauge(
+            "cko_exec_signatures",
+            "Distinct executable shape signatures dispatched"
+            " (default tenant)",
+        ).set_function(lambda: float(self._report_int("exec_signatures")))
+        self.metrics.gauge(
+            "cko_dfa_states_pre_min_total",
+            "Total DFA states before Hopcroft minimization (default tenant)",
+        ).set_function(lambda: float(self._report_int("dfa_states_pre_min")))
+        self.metrics.gauge(
+            "cko_dfa_states_post_min_total",
+            "Total DFA states after Hopcroft minimization (default tenant)",
+        ).set_function(lambda: float(self._report_int("dfa_states_post_min")))
+        # The reference's per-tier compile seconds: the port compiles no
+        # tier, so the family is declared and carries no sample.
+        self.metrics.gauge(
+            "cko_compile_tier_s",
+            "Per-tier compile seconds (no samples: the port compiles no tier)",
+            ("tier",),
+        )
+        # -- two-level device automata (docs/AUTOMATA.md) -------------------
+        # Plan composition + prefilter confirm counters for the default
+        # tenant's engine, sampled at render time (hot reloads swap the
+        # engine — and its plan — under us).
+        self.metrics.gauge(
+            "cko_dfa_hot_groups",
+            "Groups compiled to DFA-hot transition-gather banks"
+            " (default tenant)",
+        ).set_function(lambda: float(self._automata_count("dfa-hot")))
+        m_tier_kind = self.metrics.gauge(
+            "cko_tier_kind",
+            "Match groups by automata tier assignment (default tenant)",
+            ("kind",),
+        )
+        for kind in ("segment", "dfa-hot", "prefiltered", "nfa"):
+            m_tier_kind.set_function(
+                (lambda k: lambda: float(self._automata_count(k)))(kind),
+                kind=kind,
+            )
+        self.metrics.gauge(
+            "cko_prefilter_hits_total",
+            "Device prefilter positives routed to exact confirmation",
+        ).set_function(lambda: float(self._prefilter_stat("hits")))
+        self.metrics.gauge(
+            "cko_prefilter_confirms_total",
+            "Prefilter positives the exact DFA confirmed",
+        ).set_function(lambda: float(self._prefilter_stat("confirms")))
+        self.metrics.gauge(
+            "cko_prefilter_false_positives_total",
+            "Prefilter positives the exact DFA cleared (over-approximation"
+            " cost)",
+        ).set_function(lambda: float(self._prefilter_stat("false_positives")))
+        self.batcher.on_engine_error = (
+            lambda _engine, err: self.degraded.record_device_failure(err)
+        )
+        self.batcher.on_engine_success = (
+            lambda _engine: self.degraded.record_device_success()
+        )
+        # -- per-request fault isolation (docs/DEGRADED_MODE.md) ------------
+        # Request timeout: config field -> CKO_REQUEST_TIMEOUT_S -> 30.
+        # The resolved float is normalized back onto config so every
+        # reader (_timeout_for, the frontends) sees one value.
+        if config.request_timeout_s is None:
+            try:
+                config.request_timeout_s = float(
+                    os.environ.get("CKO_REQUEST_TIMEOUT_S", "") or 30.0
+                )
+            except ValueError:
+                config.request_timeout_s = 30.0
+        self.batcher.request_timeout_s = float(config.request_timeout_s)
+        # Dispatch watchdog: config field -> CKO_WINDOW_DEADLINE_S ->
+        # auto (None = ~10x warm p99 once warmed; <= 0 disables).
+        wd = config.window_deadline_s
+        if wd is None:
+            raw = os.environ.get("CKO_WINDOW_DEADLINE_S", "")
+            if raw:
+                try:
+                    wd = float(raw)
+                except ValueError:
+                    wd = None
+        config.window_deadline_s = wd
+        self.batcher.window_deadline_s = wd
+        # Poison quarantine: offenders isolated by the bisector are
+        # routed to host fallback at batch-assembly time. Window faults
+        # feed the breaker provisionally (prompt demotion under a real
+        # storm); a successful isolation proved the device healthy on
+        # other traffic, so it forgives the failure — the breaker stays
+        # closed under a poison storm.
+        self.quarantine = QuarantineRegistry()
+        self.bisector = PoisonBisector(
+            self.quarantine,
+            on_isolated=self.degraded.record_device_success,
+        )
+        self.bisector.start()
+        self.batcher.quarantine = self.quarantine
+        self.batcher.fallback_evaluate = self._drain_evaluate
+        self.batcher.on_window_fault = self._on_window_fault
+        # Fingerprint verdict cache (sidecar/verdict_cache.py): repeated
+        # requests are answered at batch-assembly time from the verdict
+        # the engine already produced. Invalidated wholesale on EVERY
+        # engine swap (_on_engine_swap); a quarantined fingerprint
+        # evicts its cached verdict immediately (a cached allow must
+        # not outlive its quarantine).
+        self.verdict_cache = VerdictCache()
+        self.batcher.verdict_cache = self.verdict_cache
+        self.batcher.cache_key_fn = self.tenants.ruleset_uuid_for
+        self.quarantine.on_add = self.verdict_cache.evict_fingerprint
+        self.metrics.gauge(
+            "cko_windows_abandoned_total",
+            "Windows abandoned by the dispatch watchdog (deadline blown;"
+            " futures re-answered by host fallback)",
+        ).set_function(lambda: float(self.batcher.windows_abandoned))
+        self.metrics.gauge(
+            "cko_parked_readbacks",
+            "Stuck device readbacks parked on disposable worker threads",
+        ).set_function(lambda: float(self.batcher.parked_readbacks))
+        self.metrics.gauge(
+            "cko_collector_wedged",
+            "1 when the collect thread outlived its stop() join budget",
+        ).set_function(lambda: float(1 if self.batcher.collector_wedged else 0))
+        self.metrics.gauge(
+            "cko_quarantine_entries",
+            "Request fingerprints currently quarantined to host fallback",
+        ).set_function(lambda: float(len(self.quarantine)))
+        self.metrics.gauge(
+            "cko_quarantine_hits_total",
+            "Requests routed to host fallback by a quarantine match",
+        ).set_function(lambda: float(self.quarantine.hits_total))
+        self.metrics.gauge(
+            "cko_quarantine_isolated_total",
+            "Poison requests isolated by the window bisector",
+        ).set_function(lambda: float(self.quarantine.isolated_total))
+        self.metrics.gauge(
+            "cko_verdict_cache_entries",
+            "Fingerprint verdicts currently held by the cache",
+        ).set_function(lambda: float(len(self.verdict_cache)))
+        self.metrics.gauge(
+            "cko_verdict_cache_hits_total",
+            "Requests answered from the verdict cache without a device step",
+        ).set_function(lambda: float(self.verdict_cache.hits_total))
+        self.metrics.gauge(
+            "cko_verdict_cache_misses_total",
+            "Cache-eligible requests that rode a device window",
+        ).set_function(lambda: float(self.verdict_cache.misses_total))
+        self.metrics.gauge(
+            "cko_verdict_cache_invalidations_total",
+            "Cached verdicts dropped by ruleset swaps, quarantine"
+            " evictions, and operator flushes",
+        ).set_function(lambda: float(self.verdict_cache.invalidations_total))
+        self.metrics.gauge(
+            "cko_window_dedup_rows_total",
+            "Duplicate in-window rows served by verdict scatter instead"
+            " of a device slot",
+        ).set_function(lambda: float(self.batcher.window_dedup_rows))
+        # Graceful drain: windows still queued at stop() are EVALUATED
+        # (host fallback when available) within the drain budget instead
+        # of failing — an accepted request never loses its verdict.
+        self.batcher.drain_budget_s = self.drain_budget_s
+        self.batcher.drain_evaluate = self._drain_evaluate
+        self._fb_lock = threading.Lock()
+        self._fallback_inflight = 0
+        self.batcher.stats.on_batch = self._on_batch
+        # -- pipeline flight recorder (docs/OBSERVABILITY.md) ---------------
+        # Per-request end-to-end tracing: config field -> CKO_TRACE_* env
+        # -> defaults (sampling off). Resolved values are normalized back
+        # onto config so stats() and operators see one number.
+        if config.trace_sample_rate is None:
+            try:
+                config.trace_sample_rate = float(
+                    os.environ.get("CKO_TRACE_SAMPLE_RATE", "") or 0.0
+                )
+            except ValueError:
+                config.trace_sample_rate = 0.0
+        if config.trace_ring is None:
+            try:
+                config.trace_ring = int(os.environ.get("CKO_TRACE_RING", "") or 512)
+            except ValueError:
+                config.trace_ring = 512
+        self.tracer = TraceRecorder(
+            capacity=config.trace_ring, sample_rate=config.trace_sample_rate
+        )
+        self.metrics.gauge(
+            "cko_traces_recorded_total",
+            "Flight-recorder traces committed to the trace ring",
+        ).set_function(lambda: float(self.tracer.writes))
+        self.metrics.gauge(
+            "cko_traces_dropped_total",
+            "Flight-recorder traces evicted from the full trace ring",
+        ).set_function(lambda: float(self.tracer.dropped))
+        # On-demand device profiling (POST /waf/v1/profile): wraps a
+        # torch.profiler session; requires the metrics bearer token.
+        self._profile_lock = threading.Lock()
+        self._profiling = False
+        self._profile_dir = ""
+        self._profiler = None
+        self._profile_seq = 0
+        self.audit: AuditLogger | None = None
+        if config.audit_log == "-":
+            self.audit = AuditLogger(
+                stream=sys.stdout, relevant_only=config.audit_relevant_only
+            )
+        elif config.audit_log:
+            self.audit = AuditLogger(
+                path=config.audit_log,
+                relevant_only=config.audit_relevant_only,
+                max_bytes=config.audit_max_bytes,
+            )
+        self.metrics.gauge(
+            "cko_audit_rotations_total",
+            "Audit-log size rotations (keep-1 rollover)",
+        ).set_function(
+            lambda: float(self.audit.rotations if self.audit is not None else 0)
+        )
+        # -- build / process identity (docs/OBSERVABILITY.md) ---------------
+        self.metrics.gauge(
+            "cko_build_info",
+            "Build/runtime identity; the value is always 1",
+            ("version", "torch", "cuda", "platform"),
+        ).set(1.0, **_build_info_labels(config.device))
+        self.metrics.gauge(
+            "cko_process_resident_memory_bytes",
+            "Resident set size of the sidecar process",
+        ).set_function(_process_rss_bytes)
+        self.metrics.gauge(
+            "cko_process_open_fds",
+            "Open file descriptors held by the sidecar process",
+        ).set_function(_process_open_fds)
+        # -- ingest frontend (docs/SERVING.md) ------------------------------
+        self._httpd: _Server | None = None
+        self._frontend = None
+        if config.frontend == "threaded":
+            self._httpd = _Server((config.host, config.port), _Handler)
+            self._httpd.sidecar = self  # type: ignore[attr-defined]
+        else:
+            from .ingest import AsyncIngestFrontend
+
+            self._frontend = AsyncIngestFrontend(self)
+        # -- ext_proc data plane (docs/EXTPROC.md) --------------------------
+        # The JAX package's gRPC ExternalProcessor frontend is not ported
+        # yet: asking for it (flag or env) refuses to start rather than
+        # serve without the configured surface.
+        self._extproc = None
+        extproc_port = config.extproc_port
+        if extproc_port is None:
+            raw = os.environ.get("CKO_EXTPROC_PORT", "").strip()
+            if raw:
+                try:
+                    extproc_port = int(raw)
+                except ValueError as err:
+                    log.error("invalid CKO_EXTPROC_PORT; ext_proc stays off", err)
+        if extproc_port is not None and extproc_port >= 0:
+            raise NotImplementedError(
+                "the ext_proc frontend is not ported to this package; unset "
+                "extproc_port / CKO_EXTPROC_PORT"
+            )
+        self.metrics.gauge(
+            "cko_ingest_connections",
+            "Open connections on the async ingest frontend",
+        ).set_function(lambda: float(self._frontend_stat("connections")))
+        self.metrics.gauge(
+            "cko_ingest_parse_s",
+            "Cumulative seconds spent parsing + blob-packing ingest bytes",
+        ).set_function(lambda: float(self._frontend_stat("parse_s")))
+        self.metrics.gauge(
+            "cko_ingest_bytes_total",
+            "Request bytes read by the async ingest frontend",
+        ).set_function(lambda: float(self._frontend_stat("bytes_total")))
+        self.metrics.gauge(
+            "cko_ingest_aborted_total",
+            "Connections force-closed when the shutdown drain budget expired",
+        ).set_function(lambda: float(self.governor.aborted_total))
+        # -- ext_proc frontend (docs/EXTPROC.md) ----------------------------
+        self.metrics.gauge(
+            "cko_extproc_connections",
+            "Open ext_proc transport connections (native) / live streams (grpcio)",
+        ).set_function(lambda: float(self._extproc_stat("connections")))
+        self.metrics.gauge(
+            "cko_extproc_streams_total",
+            "ext_proc streams admitted (one per proxied HTTP request)",
+        ).set_function(lambda: float(self._extproc_stat("streams_total")))
+        self.metrics.gauge(
+            "cko_extproc_messages_total",
+            "ProcessingRequest messages decoded off ext_proc streams",
+        ).set_function(lambda: float(self._extproc_stat("messages_total")))
+        self.metrics.gauge(
+            "cko_extproc_immediate_total",
+            "ImmediateResponses sent (deny / shed / 408 / 413 / fail-closed)",
+        ).set_function(lambda: float(self._extproc_stat("immediate_total")))
+        self.metrics.gauge(
+            "cko_extproc_continue_total",
+            "CONTINUE responses sent (allow / fail-open as header mutations)",
+        ).set_function(lambda: float(self._extproc_stat("continue_total")))
+        self.metrics.gauge(
+            "cko_extproc_bytes_total",
+            "Request header+body bytes buffered off ext_proc streams",
+        ).set_function(lambda: float(self._extproc_stat("bytes_total")))
+        # -- ingress governance (docs/SERVING.md "Overload & limits") -------
+        gov = self.governor
+        self.metrics.gauge(
+            "cko_ingress_active_connections",
+            "Connections currently admitted under the global cap",
+        ).set_function(lambda: float(gov.connections))
+        self.metrics.gauge(
+            "cko_ingress_max_connections",
+            "Configured global connection cap (negative disables)",
+        ).set_function(lambda: float(gov.max_connections))
+        self.metrics.gauge(
+            "cko_ingress_inflight_bytes",
+            "Request bytes held in flight (parse buffers + bodies + windows)",
+        ).set_function(lambda: float(gov.inflight_bytes))
+        self.metrics.gauge(
+            "cko_ingress_memory_budget_bytes",
+            "Configured in-flight byte budget (negative disables)",
+        ).set_function(lambda: float(gov.memory_budget_bytes))
+        self.metrics.gauge(
+            "cko_ingress_conns_rejected_total",
+            "Connections refused 503 at the global connection cap",
+        ).set_function(lambda: float(gov.conns_rejected_total))
+        self.metrics.gauge(
+            "cko_ingress_shed_total",
+            "Requests shed 429 by the in-flight byte budget",
+        ).set_function(lambda: float(gov.shed_total))
+        self.metrics.gauge(
+            "cko_ingress_deadline_closed_total",
+            "Connections answered 408 by a header/body read deadline",
+        ).set_function(lambda: float(gov.deadline_closed_total))
+        self.metrics.gauge(
+            "cko_ingress_body_limit_total",
+            "Requests rejected 413 by the streaming body-size ceiling",
+        ).set_function(lambda: float(gov.body_limit_total))
+        self.metrics.gauge(
+            "cko_ingress_slow_disconnects_total",
+            "Connections aborted because the peer drained responses too slowly",
+        ).set_function(lambda: float(gov.slow_disconnects_total))
+        self.metrics.gauge(
+            "cko_ingress_conn_errors_total",
+            "Poisoned connections contained (reader/writer exceptions)",
+        ).set_function(lambda: float(gov.conn_errors_total))
+        self._serve_thread: threading.Thread | None = None
+
+    def _frontend_stat(self, field: str):
+        fe = getattr(self, "_frontend", None)
+        return 0 if fe is None else getattr(fe, field, 0)
+
+    def _extproc_stat(self, field: str):
+        fe = getattr(self, "_extproc", None)
+        return 0 if fe is None else getattr(fe, field, 0)
+
+    def _on_batch(
+        self, size: int, latency_s: float, trace_id: str | None = None
+    ) -> None:
+        # trace_id (when a traced request rode the batch) becomes an
+        # OpenMetrics exemplar on the latency histogram — the bridge
+        # from an aggregate tail bucket to one concrete flight record.
+        self._m_batches.inc()
+        self._m_batch_size.observe(size)
+        self._m_step.observe(latency_s, exemplar=trace_id)
+
+    def _on_retune(self, event: dict) -> None:
+        """Adaptive-scheduler observability fanout: the structured log
+        line always fires; when trace sampling is on, each retune also
+        commits its own flight record (path tag ``sched``, one
+        ``sched_retune`` event carrying the knob deltas) so knob moves
+        line up with request spans on the same timeline."""
+        log.info(
+            "scheduler retune",
+            direction=event["direction"],
+            p99_ms=event["p99_ms"],
+            occupancy=event["occupancy"],
+            changes=event["changes"],
+        )
+        if self.tracer.sample_rate <= 0.0:
+            return
+        try:
+            from ..observability.tracing import (
+                SpanContext,
+                new_span_id,
+                new_trace_id,
+            )
+
+            ctx = SpanContext(new_trace_id(), new_span_id(), None, 1, True)
+            ctx.annotate_path("sched")
+            now = _time.monotonic()
+            ctx.event(
+                "sched_retune",
+                now,
+                now,
+                track="scheduler",
+                args={
+                    "direction": event["direction"],
+                    "p99_ms": event["p99_ms"],
+                    "occupancy": event["occupancy"],
+                    "changes": event["changes"],
+                },
+            )
+            self.tracer.commit(ctx)
+        except Exception:  # observability must never take the controller down
+            pass
+
+    def _on_stage(
+        self, host_s: float, device_s: float, trace_id: str | None = None
+    ) -> None:
+        self._m_host_stage.observe(host_s, exemplar=trace_id)
+        self._m_device_stage.observe(device_s, exemplar=trace_id)
+
+    def record_verdict(
+        self, request: HttpRequest, verdict: Verdict, tenant: str | None = None
+    ) -> None:
+        """Per-request accounting: metrics counter + audit log line."""
+        self._m_requests.inc(action="deny" if verdict.interrupted else "allow")
+        if self.audit is None:
+            return
+        engine = self.tenants.engine_for(tenant)
+        meta = engine.rule_meta if engine is not None else {}
+        self.audit.log(
+            AuditRecord(
+                request_line=f"{request.method} {request.uri} {request.version}",
+                client=request.remote_addr,
+                status=verdict.status,
+                interrupted=verdict.interrupted,
+                matched=[
+                    meta.get(rid, {"id": rid}) for rid in verdict.matched_ids
+                ],
+                tenant=(tenant or self.tenants.default_tenant or ""),
+            )
+        )
+
+    @property
+    def port(self) -> int:
+        if self._frontend is not None:
+            return self._frontend.port
+        return self._httpd.server_address[1]
+
+    def ready(self) -> bool:
+        return self.tenants.any_loaded()
+
+    @property
+    def reloader(self):
+        """Back-compat shim: the default tenant's reloader."""
+        return self.tenants._reloaders[self.tenants.default_tenant]
+
+    # -- degraded-mode helpers ----------------------------------------------
+
+    def _on_engine_swap(self, engine) -> None:
+        # Wholesale verdict-cache invalidation: EVERY engine transition
+        # funnels through here (inline reload swap, rollout promotion,
+        # forced rollback, warm restore, seed) — a verdict must never
+        # outlive the compiled ruleset that produced it.
+        vcache = getattr(self, "verdict_cache", None)
+        if vcache is not None:
+            dropped = vcache.invalidate_all()
+            if dropped:
+                log.info("verdict cache invalidated on engine swap", dropped=dropped)
+        degraded = getattr(self, "degraded", None)
+        if degraded is not None and engine is not None:
+            degraded.ensure_probe(engine)
+
+    def _engine_is_current(self, engine) -> bool:
+        """True while ``engine`` is still some tenant's serving engine —
+        superseded engines' promotion probes exit instead of retrying
+        (and feeding the breaker) forever."""
+        return any(
+            self.tenants.engine_for(key) is engine
+            for key in self.tenants.tenants
+        )
+
+    def serving_mode(self, tenant: str | None = None) -> str:
+        """cold | fallback | promoted | broken (for the given tenant)."""
+        return self.degraded.mode_for(self.tenants.engine_for(tenant))
+
+    def _resident_engine_objects(self) -> list:
+        """DISTINCT serving engines across tenants (dedupe by identity —
+        the device-loss re-init must re-put each model's arrays once)."""
+        seen: dict[int, object] = {}
+        for key in self.tenants.tenants:
+            e = self.tenants.engine_for(key)
+            if e is not None:
+                seen[id(e)] = e
+        return list(seen.values())
+
+    def _drain_evaluate(self, engine, requests: list[HttpRequest]) -> list[Verdict]:
+        """Batcher drain hook: answer still-queued windows off-device at
+        shutdown. Host fallback when the engine has one (bit-identical
+        verdicts, works with the device gone); stub engines evaluate
+        directly."""
+        if (
+            self.config.fallback_enabled
+            and getattr(engine, "host_fallback", None) is not None
+        ):
+            return self.degraded.fallback_evaluate(engine, requests)
+        return engine.evaluate(requests)
+
+    def _on_window_fault(self, engine, err, requests_fn) -> None:
+        """Device-window fault taxonomy (docs/DEGRADED_MODE.md):
+
+        1. loss-class errors (DEVICE_LOST markers) go to the device-loss
+           manager — arrays are invalid, the breaker's retry-same-arrays
+           probe would be wrong;
+        2. every other fault feeds the breaker IMMEDIATELY (prompt,
+           synchronous demotion under a real device storm — the
+           pre-quarantine timing), and, when the faulted window's
+           requests are available, is ALSO handed to the poison
+           bisector: a successful isolation quarantines the offender(s)
+           and forgives the provisional failure (the device was proven
+           healthy on other traffic), so a poison storm never walks the
+           breaker open;
+        3. late-classified faults with no requests (a parked readback
+           completing after abandonment) only run the loss check — the
+           abandonment itself already fed the breaker.
+        """
+        if is_device_loss(err):
+            self.degraded.record_device_failure(err)
+            return
+        if requests_fn is None:
+            return
+        self.degraded.record_device_failure(err)
+        try:
+            requests = requests_fn()
+        except Exception as mat_err:
+            log.error("fault window materialization failed", mat_err)
+            return
+        if requests:
+            self.bisector.submit(engine, err, requests)
+
+    # -- crash-safe warm restart (docs/RECOVERY.md) --------------------------
+
+    def _persist_state(self) -> None:
+        """Write the durable serving-state snapshot (no-op when the state
+        store is disabled). Called on every promote/swap/rollback and at
+        the end of a graceful stop; must never fail the caller."""
+        store = self.state_store
+        if not store.enabled:
+            return
+        try:
+            store.save(self.tenants.snapshot())
+        except Exception as err:  # snapshot assembly is the only riser
+            log.error("serving-state persist failed", err)
+
+    def _restore_state(self) -> None:
+        """Restore serving state from the snapshot — BEFORE the first
+        cache poll, so a restart serves in seconds even with the rules
+        cache unreachable. The restored uuid reconciles against the next
+        successful poll through the normal staged-rollout path."""
+        store = self.state_store
+        if not store.enabled:
+            return
+        snap = store.load()
+        if snap is None:
+            return
+        self._m_restore_attempts.inc()
+        try:
+            n = self.tenants.restore(snap)
+        except Exception as err:
+            log.error("serving-state restore failed; cold start", err)
+            return
+        if n > 0:
+            self._m_restore_success.inc()
+            log.info("serving state restored from snapshot", tenants=n)
+
+    def begin_drain(self) -> None:
+        """Graceful-termination entry (SIGTERM): flip readyz to 503
+        immediately so Kubernetes stops routing new traffic, while
+        in-flight and queued windows keep draining; ``stop()`` then
+        finishes within the drain budget."""
+        if self._draining:
+            return
+        self._draining = True
+        log.info("drain begun: readyz now 503", budget_s=self.drain_budget_s)
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
+
+    # -- staged rollout helpers ---------------------------------------------
+
+    def force_rollback(self, tenant: str | None = None) -> dict | None:
+        """POST /waf/v1/rollback: swap the tenant's serving engine back to
+        the last-known-good ring's previous entry, aborting any in-flight
+        rollout for it."""
+        return self.tenants.force_rollback(tenant)
+
+    def _rollout_state_code(self) -> int:
+        if self.rollout is None:
+            return 0
+        return self.rollout.state_code(self.tenants.default_tenant or "")
+
+    def _rollout_count(self, outcome: str) -> int:
+        return getattr(self.rollout, outcome, 0) if self.rollout is not None else 0
+
+    def _rollout_shadow_total(self, field: str) -> int:
+        if self.rollout is None:
+            return 0
+        return self.rollout.shadow_totals().get(field, 0)
+
+    def count_failopen(self, n: int = 1) -> None:
+        self._m_failopen.inc(n)
+
+    def count_shed(self, n: int = 1, lane: str | None = None) -> None:
+        self._m_shed.inc(n)
+        if lane is not None:
+            self._m_lane_shed.inc(n, lane=lane)
+
+    # -- frontend-shared reply functions ---------------------------------------
+    # Both frontends (threaded _Handler and the async ingest loop) answer
+    # through these ``(status, payload, headers)`` functions — verdict
+    # mapping, failurePolicy, shedding, and breaker semantics cannot
+    # drift between them because there is exactly one implementation.
+
+    def healthz_reply(self) -> tuple[int, bytes, dict]:
+        # Liveness only: the process is up and answering. Readiness
+        # (ruleset loaded, device/fallback path serviceable) is
+        # /waf/v1/readyz — a liveness probe that fails on "no ruleset
+        # yet" makes Kubernetes restart a healthy pod mid-compile.
+        return 200, b"ok\n", {"Content-Type": "text/plain"}
+
+    def readyz_reply(self) -> tuple[int, bytes, dict]:
+        if self._draining:
+            # Graceful termination: out of rotation immediately; in-flight
+            # work still drains to completion before the process exits.
+            return 503, b"draining\n", {"Content-Type": "text/plain"}
+        if not self.ready():
+            return (
+                503,
+                b"not ready: no ruleset loaded\n",
+                {"Content-Type": "text/plain"},
+            )
+        mode = self.serving_mode()
+        if mode == MODE_BROKEN:
+            # Device path broken (breaker open): even though the host
+            # fallback may still answer, pull this replica from rotation —
+            # healthy replicas serve at device speed; a broken one sheds
+            # under any real load.
+            return (
+                503,
+                b"not ready: device path broken\n",
+                {"Content-Type": "text/plain"},
+            )
+        return 200, f"ok mode={mode}\n".encode(), {"Content-Type": "text/plain"}
+
+    def metrics_reply(self, authorization: str | None) -> tuple[int, bytes, dict]:
+        import hmac
+
+        token = self.config.metrics_auth_token
+        presented = authorization or ""
+        if token and not hmac.compare_digest(
+            presented.encode(), f"Bearer {token}".encode()
+        ):
+            return (
+                401,
+                json.dumps({"error": "unauthorized"}).encode(),
+                {"Content-Type": "application/json"},
+            )
+        return (
+            200,
+            self.render_metrics().encode(),
+            {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
+        )
+
+    def rollback_reply(self, body: bytes) -> tuple[int, bytes, dict]:
+        """Force the serving engine back to the previous last-known-good
+        ring entry (docs/ROLLOUT.md). Optional JSON body {"tenant": key};
+        default tenant otherwise. 409 when there is nothing to roll back
+        to (empty ring / unknown tenant)."""
+        tenant = None
+        if body:
+            try:
+                tenant = (json.loads(body.decode("utf-8")) or {}).get("tenant")
+            except (ValueError, AttributeError):
+                return _json_reply(400, {"error": "invalid rollback payload"})
+        result = self.force_rollback(tenant)
+        if result is None:
+            return _json_reply(
+                409, {"error": "nothing to roll back to (last-known-good ring empty)"}
+            )
+        return _json_reply(200, {**result, "mode": self.serving_mode(tenant)})
+
+    def quarantine_flush_reply(self, body: bytes) -> tuple[int, bytes, dict]:
+        """Drop every quarantined fingerprint (operator escape hatch:
+        a fixed ruleset or fixed upstream makes old offenders clean
+        again before their TTL runs out). Body is accepted and ignored
+        for forward compatibility."""
+        del body
+        flushed = self.quarantine.flush()
+        log.info("quarantine flushed", flushed=flushed)
+        return _json_reply(
+            200, {"flushed": flushed, "entries": len(self.quarantine)}
+        )
+
+    def cache_flush_reply(self, body: bytes) -> tuple[int, bytes, dict]:
+        """Drop every cached verdict (operator escape hatch, mirroring
+        the quarantine flush semantics: auth-exempt control path on both
+        HTTP frontends). Body is accepted and ignored for forward
+        compatibility."""
+        del body
+        flushed = self.verdict_cache.flush()
+        log.info("verdict cache flushed", flushed=flushed)
+        return _json_reply(
+            200, {"flushed": flushed, "entries": len(self.verdict_cache)}
+        )
+
+    def trace_reply(self, query: str = "") -> tuple[int, bytes, dict]:
+        """GET /waf/v1/trace — export the flight-recorder ring as Chrome
+        trace-event JSON (load the payload in Perfetto or
+        chrome://tracing). ``?trace_id=<32hex>`` narrows the export to
+        one trace; 404 when that id is not (or no longer) in the ring."""
+        trace_id = None
+        for part in (query or "").split("&"):
+            if part.startswith("trace_id="):
+                trace_id = part.split("=", 1)[1].strip().lower() or None
+        if trace_id is not None and not self.tracer.snapshot(trace_id):
+            return _json_reply(404, {"error": f"trace {trace_id} not recorded"})
+        return (
+            200,
+            self.tracer.chrome_trace_json(trace_id),
+            {"Content-Type": "application/json"},
+        )
+
+    def profile_reply(
+        self, authorization: str | None, body: bytes
+    ) -> tuple[int, bytes, dict]:
+        """POST /waf/v1/profile — on-demand device profiling wrapping a
+        ``torch.profiler`` session (CPU activity, plus CUDA activity when
+        serving on the card: CUPTI records every kernel on the device,
+        whichever thread launched it, so the batcher's windows show up).
+        Body: ``{"action": "start"|"stop"}``; ``{"dir": ...}`` optionally
+        overrides the start dump directory (default CKO_PROFILE_DIR or
+        ``cko-profile`` in the temporary directory). ``stop`` writes the
+        session as a Chrome trace, ``trace-<pid>-<n>.json``, into it and
+        answers its path under ``"trace"``.
+
+        Auth: the profiler serializes device execution and writes dumps
+        to disk, so the endpoint is bearer-guarded with the SAME token
+        as /waf/v1/metrics — and DENIED outright (403) when no token is
+        configured: an unauthenticated listener must not expose a
+        device-stalling control."""
+        import hmac
+
+        token = self.config.metrics_auth_token
+        if not token:
+            return _json_reply(
+                403,
+                {"error": "profiling disabled: no metrics auth token configured"},
+            )
+        presented = authorization or ""
+        if not hmac.compare_digest(
+            presented.encode(), f"Bearer {token}".encode()
+        ):
+            return _json_reply(401, {"error": "unauthorized"})
+        try:
+            payload = json.loads(body.decode("utf-8")) if body else {}
+            action = (payload or {}).get("action")
+        except (ValueError, AttributeError):
+            return _json_reply(400, {"error": "invalid profile payload"})
+        if action not in ("start", "stop"):
+            return _json_reply(400, {"error": 'action must be "start" or "stop"'})
+        with self._profile_lock:
+            if action == "start":
+                if self._profiling:
+                    return _json_reply(409, {"error": "profiler already running"})
+                profile_dir = (
+                    (payload or {}).get("dir")
+                    or os.environ.get("CKO_PROFILE_DIR", "")
+                    or os.path.join(tempfile.gettempdir(), "cko-profile")
+                )
+                try:
+                    from torch.profiler import ProfilerActivity, profile
+
+                    os.makedirs(profile_dir, exist_ok=True)
+                    activities = [ProfilerActivity.CPU]
+                    if _device_type(self.config.device) == "cuda":
+                        activities.append(ProfilerActivity.CUDA)
+                    prof = profile(activities=activities, experimental_config=_all_threads())
+                    prof.start()
+                except Exception as err:
+                    return _json_reply(
+                        500,
+                        {
+                            "error": "profiler start failed:"
+                            f" {type(err).__name__}: {err}"
+                        },
+                    )
+                self._profiling = True
+                self._profile_dir = profile_dir
+                self._profiler = prof
+                log.info("device profiling started", dir=profile_dir)
+                return _json_reply(200, {"profiling": True, "dir": profile_dir})
+            if not self._profiling:
+                return _json_reply(409, {"error": "profiler not running"})
+            self._profiling = False
+            prof, self._profiler = self._profiler, None
+            self._profile_seq += 1
+            trace = os.path.join(
+                self._profile_dir, f"trace-{os.getpid()}-{self._profile_seq}.json"
+            )
+            try:
+                prof.stop()
+                prof.export_chrome_trace(trace)
+            except Exception as err:
+                return _json_reply(
+                    500,
+                    {"error": f"profiler stop failed: {type(err).__name__}: {err}"},
+                )
+            log.info("device profiling stopped", dir=self._profile_dir, trace=trace)
+            return _json_reply(
+                200, {"profiling": False, "dir": self._profile_dir, "trace": trace}
+            )
+
+    def overloaded_reply(
+        self, err: Overloaded, as_json: bool
+    ) -> tuple[int, bytes, dict]:
+        retry = max(1, int(err.retry_after_s + 0.999))
+        if as_json:
+            # Header parity with the filter-mode branch below: shed
+            # responses carry the action taxonomy on BOTH surfaces.
+            return _json_reply(
+                429,
+                {"error": f"overloaded: {err}"},
+                {"Retry-After": str(retry), "x-waf-action": "shed"},
+            )
+        return (
+            429,
+            b"WAF overloaded, retry later\n",
+            {
+                "Content-Type": "text/plain",
+                "x-waf-action": "shed",
+                "Retry-After": str(retry),
+            },
+        )
+
+    def unavailable_reply(self) -> tuple[int, bytes, dict]:
+        # Fail-open: pass the request through unevaluated. Fail-closed: 503.
+        if self.config.failure_policy == FAILURE_POLICY_ALLOW:
+            self.count_failopen()
+            return (
+                200,
+                b"allowed (fail-open: no ruleset loaded)\n",
+                {"Content-Type": "text/plain", "x-waf-action": "fail-open"},
+            )
+        return (
+            503,
+            b"WAF unavailable (fail-closed)\n",
+            {"Content-Type": "text/plain", "x-waf-action": "fail-closed"},
+        )
+
+    def breaker_filter_reply(self) -> tuple[int, bytes, dict]:
+        """Circuit breaker open with no fallback evaluator: the Engine
+        failurePolicy decides. ``fail`` denies by default (403 — the WAF
+        is refusing traffic it cannot evaluate, not erroring), ``allow``
+        passes through and counts the fail-open."""
+        if self.config.failure_policy == FAILURE_POLICY_ALLOW:
+            self.count_failopen()
+            return (
+                200,
+                b"allowed (fail-open: breaker open)\n",
+                {"Content-Type": "text/plain", "x-waf-action": "fail-open"},
+            )
+        return (
+            403,
+            b"blocked by WAF (fail-closed: breaker open)\n",
+            {"Content-Type": "text/plain", "x-waf-action": "fail-closed"},
+        )
+
+    def verdict_filter_reply(self, verdict: Verdict) -> tuple[int, bytes, dict]:
+        if verdict.interrupted:
+            return (
+                verdict.status,
+                b"blocked by WAF\n",
+                {
+                    "Content-Type": "text/plain",
+                    "x-waf-action": "deny",
+                    "x-waf-rule-id": str(verdict.rule_id or 0),
+                },
+            )
+        return (
+            200,
+            b"allowed\n",
+            {"Content-Type": "text/plain", "x-waf-action": "allow"},
+        )
+
+    def filter_reply(
+        self,
+        req: HttpRequest,
+        tenant: str | None = None,
+        deadline_s: float | None = None,
+        span=None,
+        lane: str | None = None,
+    ) -> tuple[int, bytes, dict]:
+        """Filter mode, end to end: evaluate the inbound request and map
+        the verdict (or degraded-mode exception) to the wire reply.
+        ``span`` is an optional flight-recorder context; degraded exits
+        tag it so an exported trace names the branch taken. ``lane``
+        pins the priority lane (ext_proc classifies at the protocol
+        level); None auto-classifies from the request body."""
+        try:
+            verdict = self.evaluate(
+                req, tenant=tenant, deadline_s=deadline_s, span=span, lane=lane
+            )
+        except Overloaded as err:
+            self._span_degraded(span, "shed", "shed")
+            return self.overloaded_reply(err, as_json=False)
+        except BreakerOpen:
+            self._span_degraded(span, "breaker", "breaker_open")
+            return self.breaker_filter_reply()
+        except EngineUnavailable:
+            self._span_degraded(span, "unavailable", "unavailable")
+            return self.unavailable_reply()
+        except Exception as err:  # evaluation failure → failurePolicy
+            log.error("filter evaluation failed", err)
+            self._span_degraded(span, "error", "eval_error")
+            return self.unavailable_reply()
+        self.record_verdict(req, verdict, tenant=tenant)
+        return self.verdict_filter_reply(verdict)
+
+    @staticmethod
+    def _span_degraded(span, path: str, name: str) -> None:
+        """Stamp a degraded-branch point event onto a flight record
+        (no-op for untraced / non-recording requests; never raises)."""
+        if span is None:
+            return
+        try:
+            now = _time.monotonic()
+            span.annotate_path(path)
+            span.event(name, now, now, track="degraded")
+        except Exception:
+            pass
+
+    def bulk_reply(
+        self,
+        body: bytes,
+        tenant_header: str | None = None,
+        deadline_s: float | None = None,
+    ) -> tuple[int, bytes, dict]:
+        # Tenant selection (header or per-request field) is gated behind the
+        # same trust_tenant_header switch as filter mode: the bulk API shares
+        # the unauthenticated listener, so without the explicit opt-in a
+        # caller must not be able to probe arbitrary tenants' rulesets.
+        trust = self.config.trust_tenant_header
+        default_tenant = (tenant_header or None) if trust else None
+
+        # Fast path (the ≥100k req/s serving contract): single-tenant
+        # deployments hand the raw JSON body to the native ingest — C++
+        # parses, extracts, transforms, and packs rows; Python tiers,
+        # dispatches the device step, and streams the verdict array.
+        # Falls through to the object path for tenant routing, when the
+        # serving mode is degraded (fallback/broken), or when the native
+        # parse rejects the payload (schema errors then get their
+        # descriptive 400 from the Python path).
+        if not trust:
+            try:
+                fast = self.evaluate_bulk_fast(body)
+            except BreakerOpen:
+                fast = None
+            if fast is not None:
+                return _json_reply(
+                    200, {"verdicts": fast, "mode": self.serving_mode()}
+                )
+
+        try:
+            payload = json.loads(body.decode("utf-8"))
+            reqs = [request_from_json(o) for o in payload["requests"]]
+            tenants = [
+                (o.get("tenant") or default_tenant) if trust else None
+                for o in payload["requests"]
+            ]
+        except (ValueError, KeyError, TypeError, AttributeError) as err:
+            return _json_reply(400, {"error": f"invalid request payload: {err}"})
+        try:
+            verdicts = self.evaluate_many(reqs, tenants=tenants, deadline_s=deadline_s)
+        except Overloaded as err:
+            return self.overloaded_reply(err, as_json=True)
+        except BreakerOpen:
+            return self._breaker_open_bulk_reply(reqs)
+        except EngineUnavailable:
+            return self.unavailable_reply()
+        except Exception as err:  # evaluation failure: explicit 500, not a
+            log.error("bulk evaluation failed", err)  # dropped connection
+            # Always name the exception type: TimeoutError's str() is empty
+            # and a blank error message erases the diagnosis (VERDICT r4
+            # weak #5).
+            return _json_reply(
+                500, {"error": f"evaluation failed: {type(err).__name__}: {err}"}
+            )
+        for r, v, t in zip(reqs, verdicts, tenants):
+            self.record_verdict(r, v, tenant=t)
+        return _json_reply(
+            200,
+            {
+                "verdicts": [verdict_to_json(v) for v in verdicts],
+                "mode": self.serving_mode(),
+            },
+        )
+
+    def _breaker_open_bulk_reply(self, reqs) -> tuple[int, bytes, dict]:
+        if self.config.failure_policy == FAILURE_POLICY_ALLOW:
+            self.count_failopen(len(reqs))
+            allow = Verdict(interrupted=False, status=200, rule_id=None)
+            return _json_reply(
+                200,
+                {
+                    "verdicts": [verdict_to_json(allow) for _ in reqs],
+                    "mode": "fail-open",
+                },
+            )
+        return _json_reply(
+            503, {"error": "WAF unavailable (fail-closed: circuit breaker open)"}
+        )
+
+    def shed_retry_after(self, lane: str | None = None) -> float:
+        """Live ``Retry-After`` for shed replies: the configured base
+        scaled by how deep the (lane's) backlog sits relative to its
+        queue budget, capped at 8x — a client that backs off proportional
+        to the actual queue drains it instead of stampeding at a fixed
+        interval. Never raises; falls back to the configured constant."""
+        base = self.config.shed_retry_after_s
+        try:
+            if lane is None:
+                budget = self.config.queue_budget
+            else:
+                budget = self.lane_queue_budgets.get(lane, self.config.queue_budget)
+            if budget is None or budget <= 0:
+                return base
+            pending = self.batcher.pending(lane)
+            return base * min(8.0, max(1.0, pending / budget))
+        except Exception:
+            return base
+
+    def _tenant_queue_over_share(
+        self, tenant: str | None, n: int, pending: int, budget: int
+    ) -> bool:
+        """Tenant-scoped queue admission (the batch-assembly mirror of
+        the governor's byte-ledger fairness): once the lane backlog
+        passes the pressure fraction, a tenant whose queued items exceed
+        its weighted share of the budget sheds before the global budget
+        trips for everyone."""
+        if tenant is None or budget <= 0:
+            return False
+        gov = self.governor
+        if pending + n <= budget * gov.tenant_shed_fraction:
+            return False
+        backlog = self.batcher.tenant_backlog()
+        active = set(backlog)
+        active.add(tenant)
+        total_w = sum(gov.weight_for(t) for t in active)
+        if total_w <= 0:
+            return False
+        share = budget * gov.weight_for(tenant) / total_w
+        return backlog.get(tenant, 0) + n > share
+
+    def _admit_device(
+        self, n: int = 1, lane: str | None = None, tenant: str | None = None
+    ) -> None:
+        """Queue admission control: shed (429) instead of growing an
+        unbounded batcher backlog. ``n`` is how many requests the caller
+        is about to submit (a whole ingest window sheds as one unit, but
+        the cko_shed_total counter stays per-request). With a ``lane``
+        the lane's own (scheduler-tuned) budget applies against the
+        lane's own backlog — a bodied flood saturating the bulk lane
+        never sheds headers-only traffic. A known ``tenant`` over its
+        weighted share of the queue sheds first."""
+        if lane is None:
+            budget = self.config.queue_budget
+        else:
+            budget = self.lane_queue_budgets.get(lane, self.config.queue_budget)
+        if budget is None or budget < 0:
+            return
+        pending = self.batcher.pending(lane)
+        if tenant is not None and self._tenant_queue_over_share(
+            tenant, n, pending, budget
+        ):
+            self.governor.count_tenant_shed(tenant)
+            self.count_shed(n, lane=lane)
+            raise Overloaded(
+                f"tenant {tenant!r} over weighted queue share",
+                retry_after_s=self.shed_retry_after(lane),
+            )
+        if pending > budget:
+            self.count_shed(n, lane=lane)
+            raise Overloaded(
+                f"batcher backlog {pending} over budget {budget}",
+                retry_after_s=self.shed_retry_after(lane),
+            )
+
+    def _fallback_eval(
+        self, engine, requests: list[HttpRequest], span=None
+    ) -> list[Verdict]:
+        """Host-fallback evaluation with its own concurrency admission
+        (the fallback runs on handler threads)."""
+        budget = self.config.fallback_inflight_budget
+        with self._fb_lock:
+            if budget is not None and budget >= 0 and self._fallback_inflight >= budget:
+                self._m_shed.inc()
+                raise Overloaded(
+                    f"host fallback at concurrency budget {budget}",
+                    retry_after_s=self.shed_retry_after(),
+                )
+            self._fallback_inflight += 1
+        try:
+            return self.degraded.fallback_evaluate(engine, requests, span=span)
+        finally:
+            with self._fb_lock:
+                self._fallback_inflight -= 1
+
+    # -- evaluation ----------------------------------------------------------
+
+    def _timeout_for(self, engines) -> float:
+        """request_timeout_s once every engine involved has served a batch;
+        compile_timeout_s while any is still cold (first XLA compile of a
+        CRS-scale model takes minutes — a strict timeout mid-compile turned
+        into a blank 500 on freshly started sidecars, VERDICT r4 #2)."""
+        for e in engines:
+            if e is not None and not getattr(e, "warmed", True):
+                return max(self.config.compile_timeout_s, self.config.request_timeout_s)
+        return self.config.request_timeout_s
+
+    def evaluate(
+        self,
+        request: HttpRequest,
+        tenant: str | None = None,
+        deadline_s: float | None = None,
+        span=None,
+        lane: str | None = None,
+    ) -> Verdict:
+        engine = self.tenants.engine_for(tenant)
+        if engine is None:
+            raise EngineUnavailable(f"no compiled ruleset loaded for {tenant!r}")
+        if self.degraded.route(engine) == "fallback":
+            return self._fallback_eval(engine, [request], span=span)[0]
+        if lane is None:
+            lane = classify_lane(request)
+        self._admit_device(lane=lane, tenant=tenant)
+        timeout = self._timeout_for([engine])
+        if deadline_s is not None:
+            timeout = max(0.001, min(timeout, deadline_s - _time.monotonic()))
+        # Deadline-header requests bypass the verdict cache: their
+        # cancel/rescue dance must observe the unmodified device path
+        # (trusted-tenant requests are excluded inside the batcher).
+        fut = self.batcher.submit(
+            request,
+            tenant=tenant,
+            span=span,
+            lane=lane,
+            no_cache=deadline_s is not None,
+        )
+        try:
+            return fut.result(timeout=timeout)
+        except EngineUnavailable:
+            raise
+        except Exception as err:
+            # Timeout with no client deadline keeps the legacy contract
+            # (handler -> failurePolicy); anything else — a device error,
+            # or a deadline the device path cannot make — is answered by
+            # the fallback so a verdict still flows.
+            if isinstance(err, (FutTimeout, TimeoutError)) and deadline_s is None:
+                raise
+            if not self.degraded.fallback_enabled:
+                raise
+            # Cancel the queued submission so the device never evaluates
+            # work the fallback is about to answer (the batcher skips
+            # cancelled futures still in its queue).
+            fut.cancel()
+            log.error("device path failed; serving from host fallback", err)
+            return self._fallback_eval(engine, [request], span=span)[0]
+
+    def evaluate_bulk_fast(self, body: bytes) -> list[dict] | None:
+        """Native bulk evaluation for the default tenant. Returns the
+        JSON-ready verdict list, or None when unavailable (no engine,
+        native tier off, malformed payload) — the caller then uses the
+        per-request object path. Accounting: metrics count the batch in
+        two increments; the audit posture is IDENTICAL to the object
+        path's ``record_verdict``: ``AuditLogger``'s
+        relevant_only setting decides — RelevantOnly logs interrupted or
+        matched requests, full mode logs every request — with request
+        lines recovered from the native request blob."""
+        engine = self.tenants.engine_for(None)
+        if engine is None or not getattr(engine, "native_enabled", False):
+            return None
+        # Fast path is device-only: in fallback/broken mode the object
+        # path routes through the host evaluator instead. (BreakerOpen
+        # propagates when the breaker is open and fallback is disabled.)
+        if self.degraded.route(engine) != "device":
+            return None
+        try:
+            out = engine.evaluate_bulk_json(body)
+        except Exception as err:
+            log.error("bulk fast path failed; falling back", err)
+            self.degraded.record_device_failure(err)
+            return None
+        if out is None:
+            return None
+        self.degraded.record_device_success()
+        verdicts, blob = out
+        self.record_window(engine, blob, verdicts)
+        return [verdict_to_json(v) for v in verdicts]
+
+    def count_window(self, verdicts: list[Verdict]) -> None:
+        """Verdict counters for a blob-backed window. Split out of
+        ``record_window`` so the async frontend can increment them
+        BEFORE the replies leave the loop thread — a client that reads
+        its 200 and immediately scrapes ``/waf/v1/metrics`` must see its
+        own request counted (the audit half stays off the loop)."""
+        n_deny = sum(1 for v in verdicts if v.interrupted)
+        self._m_requests.inc(n_deny, action="deny")
+        self._m_requests.inc(len(verdicts) - n_deny, action="allow")
+
+    def record_window(
+        self, engine, blob: bytes, verdicts: list[Verdict], counted: bool = False
+    ) -> None:
+        """Batch accounting for blob-backed windows (bulk fast path and
+        async-ingest filter windows): metrics in two increments, audit
+        posture IDENTICAL to the per-request ``record_verdict`` path
+        — ``AuditLogger``'s relevant_only setting decides,
+        with request lines recovered from the native request blob."""
+        if not counted:
+            self.count_window(verdicts)
+        if self.audit is None:
+            return
+        from ..native import blob_request_lines
+
+        if self.audit.relevant_only:
+            wanted = {
+                i for i, v in enumerate(verdicts) if v.interrupted or v.matched_ids
+            }
+        else:
+            wanted = set(range(len(verdicts)))
+        if not wanted:
+            return
+        lines = blob_request_lines(blob, wanted)
+        meta = engine.rule_meta if engine is not None else {}
+        for i in sorted(wanted):
+            method, uri, version, remote = lines.get(i, ("?", "?", "?", ""))
+            v = verdicts[i]
+            self.audit.log(
+                AuditRecord(
+                    request_line=f"{method} {uri} {version}",
+                    client=remote,
+                    status=v.status,
+                    interrupted=v.interrupted,
+                    matched=[meta.get(rid, {"id": rid}) for rid in v.matched_ids],
+                    tenant=self.tenants.default_tenant or "",
+                )
+            )
+
+    def evaluate_many(
+        self,
+        requests: list[HttpRequest],
+        tenants: list[str | None] | None = None,
+        deadline_s: float | None = None,
+    ) -> list[Verdict]:
+        tenants = tenants or [None] * len(requests)
+        engines = {t: self.tenants.engine_for(t) for t in set(tenants)}
+
+        # Route per tenant engine: fallback-mode engines are evaluated
+        # directly on the handler thread (no batcher), device-mode ones
+        # ride the batcher as before. Unknown tenants (engine None) keep
+        # the legacy path — the batcher fails them with EngineUnavailable
+        # and the failurePolicy answers. BreakerOpen propagates when the
+        # breaker is open and the fallback is disabled.
+        routes = {
+            t: (e is not None and self.degraded.route(e) == "fallback")
+            for t, e in engines.items()
+        }
+        fb_idx: dict[str | None, list[int]] = {}
+        dev_idx: list[int] = []
+        for i, t in enumerate(tenants):
+            if routes[t]:
+                fb_idx.setdefault(t, []).append(i)
+            else:
+                dev_idx.append(i)
+        out: list[Verdict | None] = [None] * len(requests)
+        for t, idxs in fb_idx.items():
+            for i, v in zip(
+                idxs, self._fallback_eval(engines[t], [requests[i] for i in idxs])
+            ):
+                out[i] = v
+        if not dev_idx:
+            return out  # type: ignore[return-value]
+
+        self._admit_device()
+        dev_engines = [engines[tenants[i]] for i in dev_idx]
+        try:
+            dev_out = self._evaluate_many_device(
+                [requests[i] for i in dev_idx],
+                [tenants[i] for i in dev_idx],
+                dev_engines,
+                deadline_s,
+            )
+        except EngineUnavailable:
+            raise
+        except Exception as err:
+            # Same degradation contract as evaluate(): legacy timeouts
+            # (no client deadline) propagate; other device failures — or
+            # a deadline the device path cannot make — answer from the
+            # fallback, provided every involved engine has one.
+            legacy_timeout = (
+                isinstance(err, (FutTimeout, TimeoutError)) and deadline_s is None
+            )
+            if (
+                legacy_timeout
+                or not self.degraded.fallback_enabled
+                or any(e is None for e in dev_engines)
+            ):
+                raise
+            log.error("device path failed; serving bulk from host fallback", err)
+            by_tenant: dict[str | None, list[int]] = {}
+            for i in dev_idx:
+                by_tenant.setdefault(tenants[i], []).append(i)
+            for t, idxs in by_tenant.items():
+                for i, v in zip(
+                    idxs,
+                    self._fallback_eval(engines[t], [requests[i] for i in idxs]),
+                ):
+                    out[i] = v
+            return out  # type: ignore[return-value]
+        for i, v in zip(dev_idx, dev_out):
+            out[i] = v
+        return out  # type: ignore[return-value]
+
+    def _evaluate_many_device(
+        self,
+        requests: list[HttpRequest],
+        tenants: list[str | None],
+        engines: list[WafEngine | None],
+        deadline_s: float | None,
+    ) -> list[Verdict]:
+        timeout = self._timeout_for(engines)
+        futures: list[Future] = [
+            self.batcher.submit(r, tenant=t) for r, t in zip(requests, tenants)
+        ]
+        # Cold engines get the full compile budget. Warmed engines keep a
+        # meaningful SLA: the strict timeout plus a bounded recompile
+        # grace (fresh-shape recompiles mid-stream are real, but a wedged
+        # device step must fail clients in timeout+grace, not 600s). A
+        # client deadline caps both.
+        if timeout > self.config.request_timeout_s:  # some engine is cold
+            hard_budget = timeout
+        else:
+            hard_budget = timeout + max(0.0, self.config.recompile_grace_s)
+        deadline_max = _time.monotonic() + hard_budget
+        if deadline_s is not None:
+            deadline_max = min(deadline_max, deadline_s)
+        try:
+            return self._collect_futures(futures, timeout, deadline_max)
+        except Exception:
+            # The caller may re-answer from the fallback: cancel whatever
+            # is still queued so the device never evaluates abandoned work.
+            for f in futures:
+                f.cancel()
+            raise
+
+    def _collect_futures(
+        self, futures: list[Future], timeout: float, deadline_max: float
+    ) -> list[Verdict]:
+        out: list[Verdict] = []
+        for f in futures:
+            while True:
+                remaining = deadline_max - _time.monotonic()
+                try:
+                    out.append(f.result(timeout=min(timeout, max(0.001, remaining))))
+                    break
+                except FutTimeout:
+                    if f.done():
+                        # The future COMPLETED with a TimeoutError-typed
+                        # engine error (indistinguishable from a wait
+                        # timeout on 3.11+) — propagate it, don't spin.
+                        raise
+                    if remaining <= 0:
+                        raise
+                    # A device step (possibly a fresh-shape recompile) is
+                    # in flight, or our request still sits queued behind a
+                    # live batcher: extend rather than fail mid-compile.
+                    # The extension is BOUNDED by deadline_max (strict
+                    # timeout + recompile grace for warmed engines), so a
+                    # deep queue delays at most that long, never the full
+                    # compile budget.
+                    if self.batcher.busy:
+                        continue
+                    # Grace re-check: busy is briefly False between
+                    # windows while a request moves queue->window.
+                    _time.sleep(0.05)
+                    if (
+                        f.done()
+                        or self.batcher.busy
+                        or self.batcher.pending()
+                    ):
+                        continue
+                    raise
+        return out
+
+    def _effective_deadline(self) -> float | None:
+        """The watchdog deadline currently armed for the default
+        tenant's engine (None = off: cold engine, too few samples, or
+        explicitly disabled). Surfaced so operators and the chaos
+        harness can size their expectations."""
+        engine = self.tenants.engine_for(None)
+        if engine is None:
+            return None
+        try:
+            return self.batcher._window_deadline_for(engine)
+        except Exception:
+            return None
+
+    def _compile_report_len(self, field: str) -> int:
+        engine = self.tenants.engine_for(None)
+        if engine is None:
+            return 0
+        return len(getattr(engine.compiled.report, field))
+
+    def _report_int(self, field: str) -> int:
+        engine = self.tenants.engine_for(None)
+        if engine is None:
+            return 0
+        return int(getattr(engine.compiled.report, field, 0))
+
+    def _native_summary(self) -> dict:
+        """The default tenant's native window-pipeline summary (tiered
+        availability, window counts/latency, staging-arena counters;
+        docs/NATIVE.md), or a disabled stub while no engine is resident
+        or the engine is a test stub without the native bridge."""
+        engine = self.tenants.engine_for(None)
+        if engine is None or not hasattr(engine, "native_stats"):
+            return {
+                "available": False,
+                "tiered": False,
+                "windows_total": 0,
+                "window_s_total": 0.0,
+                "p50_window_ms": 0.0,
+                "p50_assemble_ms": 0.0,
+                "arena": {"buffers": 0, "reuses_total": 0, "allocs_total": 0},
+            }
+        return engine.native_stats()
+
+    def _native_stat(self, key: str) -> float:
+        return float(self._native_summary()[key])
+
+    def _arena_stat(self, key: str) -> int:
+        return int(self._native_summary()["arena"][key])
+
+    def _automata_summary(self) -> dict:
+        """The default tenant's two-level automata summary (tier counts,
+        bank counts, prefilter confirm counters; docs/AUTOMATA.md), or a
+        disabled stub while no engine is resident."""
+        engine = self.tenants.engine_for(None)
+        if engine is None or not hasattr(engine, "automata_summary"):
+            return {"enabled": False, "tiers": {}, "prefilter": {}}
+        return engine.automata_summary()
+
+    def _automata_count(self, kind: str) -> int:
+        return int(self._automata_summary()["tiers"].get(kind, 0))
+
+    def _prefilter_stat(self, key: str) -> int:
+        return int(self._automata_summary()["prefilter"].get(key, 0))
+
+    def render_metrics(self) -> str:
+        """Render /metrics, refreshing the per-tenant fairness gauges and
+        per-knob retune counts first: their label sets grow with traffic,
+        so they cannot be registered up front."""
+        for tenant, row in self.governor.tenant_ledger().items():
+            self._m_tenant_bytes.set(float(row["inflight_bytes"]), tenant=tenant)
+            self._m_tenant_reqs.set(float(row["inflight_requests"]), tenant=tenant)
+            self._m_tenant_shed.set(float(row["shed_total"]), tenant=tenant)
+            self._m_tenant_weight.set(float(row["weight"]), tenant=tenant)
+        if self.scheduler is not None:
+            for knob, count in self.scheduler.retunes_total.items():
+                self._m_sched_retunes.set(float(count), knob=knob)
+        return self.metrics.render()
+
+    def stats(self) -> dict:
+        return {
+            "batcher": self.batcher.stats.snapshot(),
+            "pipeline": {
+                "depth": self.batcher.pipeline_depth,
+                "inflight_windows": self.batcher.inflight_windows(),
+            },
+            "lanes": {
+                lane: {
+                    "pending": self.batcher.pending(lane),
+                    "delay_ms": round(self.batcher.lane_delay_s[lane] * 1e3, 4),
+                    "queue_budget": self.lane_queue_budgets[lane],
+                    "windows_total": self.batcher.lane_windows[lane],
+                    "requests_total": self.batcher.lane_requests[lane],
+                }
+                for lane in LANES
+            },
+            "scheduler": (
+                self.scheduler.stats()
+                if self.scheduler is not None
+                else {"enabled": False}
+            ),
+            "watchdog": {
+                "window_deadline_s": self.config.window_deadline_s,
+                "effective_deadline_s": self._effective_deadline(),
+                "windows_abandoned": self.batcher.windows_abandoned,
+                "parked_readbacks": self.batcher.parked_readbacks,
+                "collector_wedged": self.batcher.collector_wedged,
+            },
+            "quarantine": {
+                **self.quarantine.stats(),
+                "bisect_jobs": self.bisector.jobs_total,
+                "bisect_dropped": self.bisector.jobs_dropped,
+            },
+            "verdict_cache": {
+                **self.verdict_cache.stats(),
+                "window_dedup_rows": self.batcher.window_dedup_rows,
+            },
+            "request_timeout_s": self.config.request_timeout_s,
+            "tracing": self.tracer.stats(),
+            "tenants": self.tenants.stats(),
+            "reloads": self.tenants.total_reloads,
+            "failed_reloads": self.tenants.total_failed_reloads,
+            "ready": self.ready(),
+            "failure_policy": self.config.failure_policy,
+            "serving_mode": self.serving_mode(),
+            "degraded": self.degraded.stats(),
+            "shed_total": int(self._m_shed.value()),
+            "failopen_total": int(self._m_failopen.value()),
+            "compile_cache": {
+                **_exec_cache_stats(),
+                "exec_signatures": self._report_int("exec_signatures"),
+                "dfa_states_pre_min": self._report_int("dfa_states_pre_min"),
+                "dfa_states_post_min": self._report_int("dfa_states_post_min"),
+                "tier_compile_s": {},  # the port compiles no tier
+            },
+            "resident_engines": self.tenants.resident_engines(),
+            "engine_dedup_hits": self.tenants.engine_dedup_hits,
+            "automata": self._automata_summary(),
+            "native": self._native_summary(),
+            "analysis": {
+                "cko_analysis_findings_total": self.tenants.analysis_counts(),
+                "rejected_reloads": self.tenants.total_analyze_rejected,
+            },
+            "rollout": (
+                {"enabled": True, **self.rollout.stats()}
+                if self.rollout is not None
+                else {"enabled": False}
+            ),
+            "rollbacks_forced": self.tenants.total_rollbacks_forced,
+            "cko_rules_skipped_total": self._compile_report_len("skipped"),
+            "cko_rules_approximated_total": self._compile_report_len("approximated"),
+            "frontend": (
+                self._frontend.stats()
+                if self._frontend is not None
+                else {"mode": "threaded"}
+            ),
+            "extproc": (
+                self._extproc.stats()
+                if self._extproc is not None
+                else {"enabled": False}
+            ),
+            "ingress": {
+                **self.governor.stats(),
+                "window_bytes_pending": self.batcher.pending_bytes(),
+                "tenants": self.governor.tenant_ledger(),
+            },
+            "recovery": {
+                "process_start_time": self._start_time,
+                "state_store": self.state_store.stats(),
+                "restore_attempts": int(self._m_restore_attempts.value()),
+                "restore_success": int(self._m_restore_success.value()),
+                "restored_tenants": self.tenants.total_restored,
+                "device_lost_total": int(self._m_device_lost.value()),
+                "device_loss": (
+                    self.degraded.device_loss.stats()
+                    if self.degraded.device_loss is not None
+                    else None
+                ),
+                "draining": self._draining,
+                "drain_budget_s": self.drain_budget_s,
+                "drained_requests": self.batcher.drained_requests,
+                "drain_failed": self.batcher.drain_failed,
+            },
+        }
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> None:
+        self.batcher.start()
+        if self.scheduler is not None:
+            self.scheduler.start()
+        if self.state_store.enabled:
+            # Warm restart: restore from the snapshot BEFORE the first
+            # cache poll, off the startup path — the HTTP listener (and
+            # its healthz) must come up immediately; readyz flips once an
+            # engine installs. The restored uuid then reconciles against
+            # the next poll through the normal staged-rollout path.
+            threading.Thread(
+                target=self._boot, name="cko-restore", daemon=True
+            ).start()
+        else:
+            self._boot()
+        if self._frontend is not None:
+            self._frontend.start()
+        else:
+            self._serve_thread = threading.Thread(
+                target=self._httpd.serve_forever, name="sidecar-http", daemon=True
+            )
+            self._serve_thread.start()
+        if self._extproc is not None:
+            self._extproc.start()
+        log.info(
+            "tpu-engine sidecar started",
+            addr=f":{self.port}",
+            frontend=self.config.frontend,
+            instance=self.config.instance_key,
+            failurePolicy=self.config.failure_policy,
+            maxBatch=self.config.max_batch_size,
+        )
+
+    def _boot(self) -> None:
+        """Restore durable state (snapshot install precedes the first
+        cache poll), then start polling and kick promotion for engines
+        already resident (seeded/restored) — the first device batch runs
+        in the background while the fallback path answers traffic."""
+        try:
+            self._restore_state()
+        except Exception as err:
+            log.error("warm-restart restore failed; cold start", err)
+        self.tenants.start()
+        for key in self.tenants.tenants:
+            engine = self.tenants.engine_for(key)
+            if engine is not None:
+                self.degraded.ensure_probe(engine)
+
+    def stop(self) -> None:
+        # Graceful drain (docs/RECOVERY.md): readyz 503 first, then stop
+        # accepting connections, drain the batcher (in-flight windows
+        # collect; still-queued windows evaluate on the host fallback
+        # within the drain budget), persist the serving state, exit.
+        t0 = _time.monotonic()
+        self.begin_drain()
+        if self._extproc is not None:
+            self._extproc.stop()
+        if self._frontend is not None:
+            self._frontend.stop()
+        else:
+            self._httpd.shutdown()
+            if self._serve_thread:
+                self._serve_thread.join(timeout=10)
+            self._httpd.server_close()
+        self.degraded.stop()
+        self.bisector.stop()
+        if self.rollout is not None:
+            self.rollout.stop()
+        if self.scheduler is not None:
+            self.scheduler.stop()
+        self.batcher.stop()
+        self.tenants.stop()
+        self._persist_state()
+        if self.audit is not None:
+            # Explicit flush before close: every audit line for drained
+            # requests reaches the file before the process exits.
+            self.audit.flush()
+            self.audit.close()
+        drain_s = _time.monotonic() - t0
+        self._m_drain.set(drain_s)
+        log.info("tpu-engine sidecar stopped", drain_s=round(drain_s, 3))

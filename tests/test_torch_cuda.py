@@ -13,7 +13,10 @@ the finals kernel also at a crs-lite block's widths, with two embed words
 per position, with no channel and at one row and column. Then small
 engine windows on the card (the
 request path, and the blob path with the finals tier on and the body
-limit rejecting) must give the CPU engine's verdicts. Every test skips
+limit rejecting) must give the CPU engine's verdicts. Four host threads
+launching all four kernels at rising shared-memory sizes (in a fresh
+process) must each get their plain version's bits, and every launch
+counter must count exactly. Every test skips
 where there is no card. This file imports no
 JAX, so it also runs on the card's machine, without the JAX package's
 conftest::
@@ -267,3 +270,89 @@ def test_blob_window_on_card_with_finals_equals_cpu(card, monkeypatch):
     assert got == want
     assert [key(v) for v in eng.host_fallback.evaluate(reqs)] == want
     assert eng.native_stats()["arena"]["buffers"] == 1
+
+
+THREADED_LAUNCHES = r"""
+import sys, threading
+import torch
+sys.path.insert(0, sys.argv[1])
+import test_torch_cuda as T
+from coraza_kubernetes_operator_tpu_torch.ops import dfa, dfa_flat, dfa_gather, segment_finals
+
+card = torch.device("cuda")
+LENGTHS, REPS, THREADS = (40, 64, 256, 1024, 2048), 2, 4
+banks = (T.SMALL[:3], T.SMALL + T.MID)
+dense = dfa.build_dense_tier([dfa.stack_dfas(d, device=card) for d in banks], [0, 1])
+gather = dfa_gather.build_gather_tier([dfa_gather.stack_gather_bank(d, device=card) for d in banks], [0, 1])
+bins, _ = dfa_flat.plan_flat_bins([(i, p, d) for i, (p, d) in enumerate(T.FLAT_GROUPS)], max_slots=100000)
+flat = dfa_flat.build_flat_bank(bins[0], device=card)
+
+
+def scan(kind, length, seed):
+    if kind == "finals":
+        # 600 groups: the kernel's shared memory passes 48 KB from 1024 bytes on.
+        e, s, l, tables, q = T._finals_operands(card, 128, length, 36, 26, 700, 600, seed, 0.05)
+        return (segment_finals.finals_match(e, s, l, tables, q=q),
+                segment_finals.finals_match_plain(e, s, l, tables, q=q), 1)
+    if kind == "flat":
+        x = {p: tuple(T._on(card, *T._rows(2048, length, seed + p))) for p in flat.pipeline_ids}
+        return dfa_flat.scan_flat_bank(flat, x), dfa_flat.scan_flat_xla(flat, x), len(flat.layout.launches)
+    tier, fn, plain = ((dense, dfa.scan_dense_tier, dfa.scan_dense_tier_plain) if kind == "dense"
+                       else (gather, dfa_gather.scan_gather_tier, dfa_gather.scan_gather_tier_plain))
+    x = [tuple(T._on(card, *T._rows(2048, length, seed + k))) for k in range(2)]
+    return fn(tier, x, (True, True)), plain(tier, x, (True, True)), len(tier.launches)
+
+
+MODS = {"dense": dfa, "gather": dfa_gather, "flat": dfa_flat, "finals": segment_finals}
+expected = {k: 0 for k in MODS}
+lock, errors, start = threading.Lock(), [], threading.Barrier(THREADS)
+
+
+def work(t):
+    kinds = list(MODS)[t:] + list(MODS)[:t]
+    start.wait()
+    try:
+        for length in LENGTHS:  # rising shared-memory sizes, raced from every thread
+            for r in range(REPS):
+                for kind in kinds:
+                    got, want, n = scan(kind, length, 1000 * t + 10 * r)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{kind} L={length} thread {t}: differs from plain")
+                    with lock:
+                        expected[kind] += n
+    except BaseException as err:
+        errors.append(err)
+
+
+for mod in MODS.values():
+    mod.LAUNCHES = 0
+threads = [threading.Thread(target=work, args=(t,)) for t in range(THREADS)]
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+if errors:
+    raise errors[0]
+got = {k: mod.LAUNCHES for k, mod in MODS.items()}
+assert got == expected, (got, expected)
+print("ok", got)
+"""
+
+
+def test_threads_launch_every_kernel_at_rising_smem(card):
+    """Four host threads launch all four kernels at rising shared-memory
+    sizes, in a fresh process so every attribute raise happens under the
+    race (the shared-memory caches are process-wide). Every output equals
+    its plain version, and each LAUNCHES counter counts exactly."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    tests = Path(__file__).resolve().parent
+    out = subprocess.run(
+        [sys.executable, "-c", THREADED_LAUNCHES, str(tests)], cwd=tests.parent,
+        capture_output=True, text=True, timeout=600,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.startswith("ok"), out.stdout

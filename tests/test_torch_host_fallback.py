@@ -10,8 +10,8 @@ On the CPU, against the JAX package:
 - ``evaluate_phased``, ``evaluate_response`` and ``evaluate_bulk_json``
   give the JAX engine's verdicts (the JAX package's bulk path loads the
   library the port built from the same source);
-- ``prewarm`` records shape signatures, and ``reinit_device`` rebuilds the
-  model without changing a verdict.
+- ``prewarm`` records shape signatures (``EXEC_CACHE``), and
+  ``reinit_device`` rebuilds the model without changing a verdict.
 """
 
 import json
@@ -157,6 +157,9 @@ def test_evaluate_bulk_json_matches_jax(engines, monkeypatch):
 
 def test_prewarm_records_signatures_and_reinit_keeps_verdicts(monkeypatch):
     monkeypatch.setenv("CKO_VALUE_CACHE_MB", "0")  # signatures stay put
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    EXEC_CACHE.clear()  # process-wide: another test may have run these shapes
     teng = TEngine(REJECT_RULES, device="cpu")
     reqs = _requests(TRequest, tcorpus, n=8)
     assert not teng.warmed
@@ -164,8 +167,8 @@ def test_prewarm_records_signatures_and_reinit_keeps_verdicts(monkeypatch):
     assert first["compiled"] and first["wall_s"] > 0 and teng.warmed
     assert not teng.prewarm()["compiled"]
     sig = teng.batch_signature(reqs)
-    assert sig not in teng._signatures
-    assert teng.prewarm(reqs)["compiled"] and sig in teng._signatures
+    assert not EXEC_CACHE.resident(sig)
+    assert teng.prewarm(reqs)["compiled"] and EXEC_CACHE.resident(sig)
     want = keys(teng.evaluate(reqs))
     old = teng.model
     teng.reinit_device()
