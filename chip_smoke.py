@@ -41,12 +41,21 @@ failure exits non-zero; no phase is caught):
    of phase 3's requests: served req/s, per-request p50/p99 (all, and
    after each connection's first group), windows and their mean size, the
    batcher's host and device stage p50s, each kernel's launches. A second
-   sidecar started in the same process with a 100 ms batch delay (a
-   window costs about the same host time whatever its size, so at 1 ms
-   the 4096 would take minutes) serves all 4096; the three scan kernels
+   sidecar, started in the same process from what the port's control
+   plane deploys (``controller_config``: a ``driver.gpu`` Engine
+   reconciled by ``EngineReconciler``, its Deployment holding
+   ``nvidia.com/gpu``, the container's args through ``gpu-engine``'s
+   ``build_config`` with only the cache server, ports and audit log
+   overridden: a 100 ms batch delay, since a window costs about the same
+   host time whatever its size and at 1 ms the 4096 would take minutes,
+   and an ext_proc listener), serves all 4096; the three scan kernels
    must launch. Every answer (status, x-waf-action, x-waf-rule-id, body)
    must equal a CPU sidecar's on the threaded frontend; again with
-   ``CKO_PALLAS_FINALS=1`` (the finals kernel must launch); a hot reload
+   ``CKO_PALLAS_FINALS=1`` (the finals kernel must launch); then 512 of
+   the requests through the ext_proc listener (64 ``ExtProcClient``
+   connections, one thread each; the native transport, pinned), every
+   (status, x-waf-action, x-waf-rule-id)
+   equal to the HTTP answer, the body too where refused; a hot reload
    must flip a request that only the new rule matches from 200 to 403
    after a shadowed rollout; one injected device loss must be answered by
    the host fallback and end ``promoted`` again. ``CKO_LAZY_TIERS=1`` (the
@@ -287,6 +296,87 @@ def drive(port: int, payloads: list, conns: int, depth: int):
     return answers, lat, wall
 
 
+def drive_extproc(port: int, reqs: list, conns: int):
+    """Send ``reqs`` through the sidecar's ext_proc listener over ``conns``
+    ``ExtProcClient`` connections, one thread each (a client runs one
+    stream at a time). Each request goes as its HTTP bytes carry it
+    (``request_bytes``: the same path and headers, Content-Length
+    included). Returns (answers as ``read_response`` gives them, per-request
+    seconds, wall seconds); request ``i`` rides connection ``i % conns``."""
+    from coraza_kubernetes_operator_tpu_torch.sidecar.extproc import ExtProcClient
+
+    out: list = [None] * conns
+    clients = [ExtProcClient("127.0.0.1", port, timeout_s=300) for _ in range(conns)]
+
+    def worker(idx):
+        try:
+            answers, lat = [], []
+            for req in reqs[idx::conns]:
+                headers = list(req.headers)
+                if req.body:
+                    headers.append(("Content-Length", str(len(req.body))))
+                t0 = time.perf_counter()
+                r = clients[idx].filter(req.method, req.uri.replace(" ", "%20"), headers, req.body or b"")
+                lat.append(time.perf_counter() - t0)
+                answers.append((r["status"], r["headers"].get("x-waf-action"),
+                                r["headers"].get("x-waf-rule-id"), r["body"]))
+            out[idx] = (answers, lat)
+        except BaseException as err:  # raised in the main thread below
+            out[idx] = err
+        finally:
+            clients[idx].close()
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(conns)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    answers: list = [None] * len(reqs)
+    lat: list = [None] * len(reqs)
+    for i, r in enumerate(out):
+        if isinstance(r, BaseException):
+            raise r
+        answers[i::conns] = r[0]
+        lat[i::conns] = r[1]
+    return answers, lat, wall
+
+
+def controller_config(cache_port: int, key: str, **knobs):
+    """The sidecar config the port's control plane deploys for a
+    ``driver.gpu`` Engine (defaults) on RuleSet ``key``: the Engine
+    reconciled by ``EngineReconciler`` on an in-memory store, the rendered
+    container's args with only the cache server (this process's), the
+    ports (0: ephemeral) and the audit log (off) overridden, parsed by
+    ``gpu-engine``'s ``build_config``; then ``knobs``, fields the
+    controller does not render. Returns (config, the rendered container)."""
+    import dataclasses
+
+    from coraza_kubernetes_operator_tpu_torch.cmd import gpu_engine
+    from coraza_kubernetes_operator_tpu_torch.controlplane import (
+        DriverConfig, Engine, EngineReconciler, EngineSpec, EventRecorder, GpuDriverConfig,
+        ObjectMeta, ObjectStore,
+    )
+    from coraza_kubernetes_operator_tpu_torch.controlplane.api_types import RuleSetReference
+
+    ns, name = key.split("/")
+    store = ObjectStore()
+    store.create(Engine(metadata=ObjectMeta(name="chip-smoke", namespace=ns),
+                        spec=EngineSpec(rule_set=RuleSetReference(name),
+                                        driver=DriverConfig(gpu=GpuDriverConfig()))))
+    EngineReconciler(store, EventRecorder(), cache_server_cluster="coraza-cache").reconcile(ns, "chip-smoke")
+    dep = store.get("Deployment", ns, "coraza-gpu-engine-chip-smoke")
+    container = dep.spec["template"]["spec"]["containers"][0]
+    if container["resources"]["limits"] != {"nvidia.com/gpu": "1"}:
+        raise SystemExit(f"phase 6: the rendered Deployment requests {container['resources']}")
+    overrides = {"--cache-server-cluster": "127.0.0.1", "--cache-server-port": str(cache_port),
+                 "--port": "0", "--extproc-port": "0", "--audit-log": ""}
+    args = [a for a in container["args"] if a.split("=")[0] not in overrides]
+    cfg = gpu_engine.build_config(args + [f"{k}={v}" for k, v in overrides.items()])
+    return dataclasses.replace(cfg, **knobs), container
+
+
 def http_call(port: int, method: str, path: str, token: str, body: bytes = b""):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
@@ -449,10 +539,27 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table) -> None:
         # one, so the 4096 would take minutes.
         pinned, _launched = serve(sc, "finals off, as deployed", 768)
         stop(sc)
-        sc, restart_s = start(config(max_batch_delay_ms=100.0))
-        log(f"phase 6: second sidecar (100 ms batch delay) up; start to the first device "
+        # The second sidecar as the port's controller deploys it: a
+        # driver.gpu Engine's rendered args through gpu-engine's
+        # build_config (maxBatchDelayMs defaults to 100 there), with the
+        # smoke's own knobs the controller does not render: the metrics
+        # token (profile endpoint), the adaptive scheduler off (it keeps the
+        # rendered delay), a fast rule poll and shadow for the reload, and
+        # the package's own ext_proc transport (``auto`` would take grpcio,
+        # which the card's machine has).
+        rendered, container = controller_config(
+            srv.port, key, host="127.0.0.1", poll_interval_s=0.2, metrics_auth_token=token,
+            shadow_promote_windows=2, shadow_idle_check_s=0.05, compile_budget_s=600.0,
+            adaptive_enabled=False, extproc_impl="native")
+        sc, restart_s = start(rendered)
+        log(f"phase 6: second sidecar from the controller's render ({container['name']}, limits "
+            f"{container['resources']['limits']}, args {container['args']}): batch delay "
+            f"{rendered.max_batch_delay_ms:g} ms, HTTP port {sc.port}, ext_proc port "
+            f"{rendered.extproc_port} ({rendered.extproc_impl}); start to the first device "
             f"verdict {restart_s:.3f} s in the same process (compiled ruleset, kernels and "
             f"CUDA context already there) against {cold_s:.3f} s for the first [{card}]")
+        if rendered.extproc_impl != "native" or not rendered.extproc_port:
+            raise SystemExit(f"phase 6: ext_proc listener {rendered.extproc_impl}:{rendered.extproc_port}")
         engine = sc.tenants.engine_for(None)
         answers, launched = serve(sc, "finals off", len(payloads))
         if not all(launched[k] for k in scans):
@@ -496,6 +603,29 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table) -> None:
         if not launched["cko_finals_match"]:
             raise SystemExit(f"phase 6: cko_finals_match did not launch with the tier on: {launched}")
         table["cko_finals_match"]["sidecar_launches"] = launched["cko_finals_match"]
+
+        # 4b. 512 of the same requests through the native ext_proc listener,
+        # 64 ExtProcClient connections: each answer equal to the HTTP one.
+        zero()
+        m = mark(sc)
+        ext, lat, wall = drive_extproc(rendered.extproc_port, reqs[:512], 64)
+        windows, mean, step, host, dev, errs = since(sc, m)
+        ext_stats = sc.stats()["extproc"]
+        log(f"phase 6: ext_proc ({rendered.extproc_impl}, finals on): 512 requests over 64 "
+            f"connections, {512 / wall:.1f} req/s ({wall:.3f} s), request p50 "
+            f"{pct(lat, 0.5) * 1e3:.1f} ms p99 {pct(lat, 0.99) * 1e3:.1f} ms, {windows} windows of "
+            f"mean {mean:.1f} requests, step p50 {step:.1f} ms, host stage p50 {host:.2f} ms, device "
+            f"stage p50 {dev:.2f} ms, errors {errs}; kernel launches {counts()}; "
+            f"streams {ext_stats['streams_total']}, immediate {ext_stats['immediate_total']}, "
+            f"continue {ext_stats['continue_total']} [{card}]")
+        http = answers_on[:512]
+        diff = [i for i, (a, b) in enumerate(zip(ext, http))
+                if a[:3] != b[:3] or (a[0] != 200 and a[3] != b[3])]
+        if diff or errs:
+            raise SystemExit(f"phase 6: {len(diff)} ext_proc answers differ from HTTP, first "
+                             f"{[(i, ext[i][:3], http[i][:3]) for i in diff[:4]]}; errors {errs}")
+        if ext_stats["streams_total"] < 512 or not all(counts()[k] for k in scans):
+            raise SystemExit(f"phase 6: ext_proc streams {ext_stats}, launches {counts()}")
 
         # 5. hot reload: crs-lite plus one phase-2 rule, through a shadowed
         # rollout on the same card.

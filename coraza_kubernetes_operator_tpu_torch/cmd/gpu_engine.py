@@ -3,7 +3,7 @@ serving on the card (``python -m
 coraza_kubernetes_operator_tpu_torch.cmd.gpu_engine``).
 
 Flags are the reference's and mirror the args the Engine controller renders into the sidecar
-Deployment (``controlplane/engine_controller.py:build_tpu_engine_deployment``):
+Deployment (``controlplane/engine_controller.py:build_gpu_engine_deployment``):
 cache instance/cluster/port, reload interval, failure policy, batching knobs.
 ``--cache-server-cluster`` accepts a host or host:port — in-mesh this is the
 Envoy cluster name (reference ``--envoy-cluster-name``), standalone it is

@@ -331,25 +331,39 @@ flat_kernel(ScanPipes pipes, int B, int L, int Lt, const int16_t* __restrict__ t
   }
 }
 
-// Dynamic shared memory each kernel may use, raised once per larger size.
-// Several host threads launch (the sidecar's dispatch thread, the tier-warm
-// pool, a rollout's shadow engine): the sizes are atomics read without a
-// lock, and a raise happens under g_smem_mu, re-checked there, so two
-// threads never race on the attribute or its cached size.
-std::atomic<int> g_smem_dense{48 * 1024};
-std::atomic<int> g_smem_gather{48 * 1024};
-std::atomic<int> g_smem_flat[3] = {{48 * 1024}, {48 * 1024}, {48 * 1024}};
+// Dynamic shared memory each kernel may use on each card, raised once per
+// larger size. cudaFuncSetAttribute sets the limit for the calling thread's
+// current card (the wrapper makes the tensors' card current), so the cached
+// sizes are per card: kMaxCards slots indexed by cudaGetDevice, zero until a
+// raise (the default 48 KB needs none). Several host threads launch (the
+// sidecar's dispatch thread, a rollout's shadow engine): the sizes are
+// atomics read without a lock, and a raise happens under g_smem_mu,
+// re-checked there, so two threads never race on the attribute or its
+// cached size.
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxCards = 64;
+// Returned (as a launcher's error code) on a card numbered kMaxCards or more.
+constexpr int kErrTooManyCards = 1 << 20;
+std::atomic<int> g_smem_dense[kMaxCards];
+std::atomic<int> g_smem_gather[kMaxCards];
+std::atomic<int> g_smem_flat[3][kMaxCards];
 std::mutex g_smem_mu;
 
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, std::atomic<int>* set, int smem) {
-  if (smem <= set->load(std::memory_order_acquire)) return cudaSuccess;
+int allow_smem(Kernel kernel, std::atomic<int>* per_card, int smem) {
+  if (smem <= kDefaultSmem) return 0;
+  int dev = 0;
+  const cudaError_t got = cudaGetDevice(&dev);
+  if (got != cudaSuccess) return (int)got;
+  if (dev < 0 || dev >= kMaxCards) return kErrTooManyCards;
+  std::atomic<int>* set = per_card + dev;
+  if (smem <= set->load(std::memory_order_acquire)) return 0;
   std::lock_guard<std::mutex> lock(g_smem_mu);
-  if (smem <= set->load(std::memory_order_relaxed)) return cudaSuccess;
+  if (smem <= set->load(std::memory_order_relaxed)) return 0;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) set->store(smem, std::memory_order_release);
-  return err;
+  return (int)err;
 }
 
 }  // namespace
@@ -366,8 +380,8 @@ int cko_scan_dense(ScanPipes pipes, int B, int L, int Lt, const void* tab, const
                    int smem_tab_bytes, int smem, int n_recs, int gmax, void* out, int G,
                    void* stream) {
   if (B <= 0 || G <= 0 || n_recs <= 0) return 0;
-  const cudaError_t err = allow_smem(dense_tier_kernel, &g_smem_dense, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int err = allow_smem(dense_tier_kernel, g_smem_dense, smem);
+  if (err != 0) return err;
   dim3 grid((B + kGRows - 1) / kGRows, n_recs);
   dense_tier_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       pipes, B, L, Lt, (const int16_t*)tab, (const int32_t*)recs, (const int32_t*)grp_info,
@@ -381,8 +395,8 @@ int cko_scan_gather(ScanPipes pipes, int B, int L, int Lt, const void* tab, cons
                     const void* cmaps, const void* on, int smem_tab_bytes, int smem,
                     int n_recs, int gmax, void* out, int G, void* stream) {
   if (B <= 0 || G <= 0 || n_recs <= 0) return 0;
-  const cudaError_t err = allow_smem(gather_tier_kernel, &g_smem_gather, smem);
-  if (err != cudaSuccess) return (int)err;
+  const int err = allow_smem(gather_tier_kernel, g_smem_gather, smem);
+  if (err != 0) return err;
   dim3 grid((B + kGRows - 1) / kGRows, n_recs);
   gather_tier_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       pipes, B, L, Lt, (const int16_t*)tab, (const int32_t*)recs, (const int32_t*)grp_info,
@@ -408,18 +422,18 @@ int cko_scan_flat(ScanPipes pipes, int B, int L, int Lt, int R, const void* tab,
   const uint8_t* me = (const uint8_t*)mend;
   const uint8_t* al = (const uint8_t*)always;
   uint8_t* o = (uint8_t*)out;
-  cudaError_t err;
+  int err;
   switch (R) {
     case 1:
-      if ((err = allow_smem(flat_kernel<1>, &g_smem_flat[0], smem)) != cudaSuccess) return (int)err;
+      if ((err = allow_smem(flat_kernel<1>, g_smem_flat[0], smem)) != 0) return err;
       flat_kernel<1><<<grid, kThreads, smem, st>>>(pipes, B, L, Lt, t, rc, gi, me, al, smem_tab_bytes, o, G);
       break;
     case 2:
-      if ((err = allow_smem(flat_kernel<2>, &g_smem_flat[1], smem)) != cudaSuccess) return (int)err;
+      if ((err = allow_smem(flat_kernel<2>, g_smem_flat[1], smem)) != 0) return err;
       flat_kernel<2><<<grid, kThreads, smem, st>>>(pipes, B, L, Lt, t, rc, gi, me, al, smem_tab_bytes, o, G);
       break;
     case 4:
-      if ((err = allow_smem(flat_kernel<4>, &g_smem_flat[2], smem)) != cudaSuccess) return (int)err;
+      if ((err = allow_smem(flat_kernel<4>, g_smem_flat[2], smem)) != 0) return err;
       flat_kernel<4><<<grid, kThreads, smem, st>>>(pipes, B, L, Lt, t, rc, gi, me, al, smem_tab_bytes, o, G);
       break;
     default:
@@ -429,6 +443,7 @@ int cko_scan_flat(ScanPipes pipes, int B, int L, int Lt, int R, const void* tab,
 }
 
 const char* cko_error_string(int code) {
+  if (code == kErrTooManyCards) return "the card's number is past the launcher's per-card caches (kMaxCards)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -203,11 +203,18 @@ finals_kernel(const uint8_t* __restrict__ embed,    // [T, Lp, C] 0/1
   }
 }
 
-// The SM count (read once) and the dynamic shared memory the kernel may use
-// (raised once per larger size). Several host threads launch: both are
-// atomics read without a lock and written under g_mu, re-checked there.
-std::atomic<int> g_sms{0};
-std::atomic<int> g_smem_set{48 * 1024};
+// Per card: the SM count (read once) and the dynamic shared memory the
+// kernel may use (raised once per larger size; zero until a raise, as the
+// default 48 KB needs none). Both belong to the calling thread's current
+// card (the wrapper makes the tensors' card current): kMaxCards slots
+// indexed by cudaGetDevice. Several host threads launch: both are atomics
+// read without a lock and written under g_mu, re-checked there.
+constexpr int kDefaultSmem = 48 * 1024;
+constexpr int kMaxCards = 64;
+// Returned (as the launcher's error code) on a card numbered kMaxCards or more.
+constexpr int kErrTooManyCards = 1 << 20;
+std::atomic<int> g_sms[kMaxCards];
+std::atomic<int> g_smem_set[kMaxCards];
 std::mutex g_mu;
 
 }  // namespace
@@ -225,22 +232,23 @@ int cko_finals_match(const void* embed, const void* suffix, const void* lens,
                      int Gf, int Nf, int QT, int Dmax, int smem, void* out,
                      void* stream) {
   if (T <= 0 || Nf <= 0) return 0;
-  int sms = g_sms.load(std::memory_order_acquire);
-  if (sms == 0 || smem > g_smem_set.load(std::memory_order_acquire)) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxCards) return kErrTooManyCards;
+  int sms = g_sms[dev].load(std::memory_order_acquire);
+  if (sms == 0 || (smem > kDefaultSmem && smem > g_smem_set[dev].load(std::memory_order_acquire))) {
     std::lock_guard<std::mutex> lock(g_mu);
-    sms = g_sms.load(std::memory_order_relaxed);
+    sms = g_sms[dev].load(std::memory_order_relaxed);
     if (sms == 0) {
-      int dev = 0;
-      cudaError_t err = cudaGetDevice(&dev);
-      if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
       if (err != cudaSuccess) return (int)err;
-      g_sms.store(sms, std::memory_order_release);
+      g_sms[dev].store(sms, std::memory_order_release);
     }
-    if (smem > g_smem_set.load(std::memory_order_relaxed)) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          finals_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (smem > kDefaultSmem && smem > g_smem_set[dev].load(std::memory_order_relaxed)) {
+      err = cudaFuncSetAttribute(finals_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (err != cudaSuccess) return (int)err;
-      g_smem_set.store(smem, std::memory_order_release);
+      g_smem_set[dev].store(smem, std::memory_order_release);
     }
   }
   // Rows are independent; a few blocks per SM walk them grid-stride.
@@ -253,6 +261,7 @@ int cko_finals_match(const void* embed, const void* suffix, const void* lens,
 }
 
 const char* cko_error_string(int code) {
+  if (code == kErrTooManyCards) return "the card's number is past the launcher's per-card caches (kMaxCards)";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -246,15 +246,16 @@ def launch_tier(tier: DenseTier, inputs, on, fn_name: str, extra=()) -> tuple[to
     cols, tab_smem, smem = tier_smem(tier, length)
     out = torch.empty((b, tier.n_groups), dtype=torch.bool, device=dev)
     p, i = kernels.ptr, ctypes.c_int
-    on_g, stream = tier.on_groups(on), kernels.stream_ptr(dev)
-    for base, recs in tier.launches:
-        args = [
-            structs[base // MAX_PIPES], i(b), i(length), i(cols), p(tier.tab), p(recs),
-            p(tier.grp_info), p(tier.mend), p(tier.always), *extra, p(on_g), i(tab_smem),
-            i(smem), i(recs.shape[0]), i(tier.max_groups), p(out), i(tier.n_groups), stream,
-        ]
-        fn = kernels.function("dfa_scan", fn_name, [type(a) for a in args])
-        kernels.check(fn(*args), "dfa_scan", fn_name)
+    on_g = tier.on_groups(on)
+    with kernels.on_device(dev) as stream:
+        for base, recs in tier.launches:
+            args = [
+                structs[base // MAX_PIPES], i(b), i(length), i(cols), p(tier.tab), p(recs),
+                p(tier.grp_info), p(tier.mend), p(tier.always), *extra, p(on_g), i(tab_smem),
+                i(smem), i(recs.shape[0]), i(tier.max_groups), p(out), i(tier.n_groups), stream,
+            ]
+            fn = kernels.function("dfa_scan", fn_name, [type(a) for a in args])
+            kernels.check(fn(*args), "dfa_scan", fn_name)
     return out, len(tier.launches)
 
 

@@ -424,6 +424,17 @@ def scan_flat_bank(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
         return scan_flat_xla(flat, data_by_pipe)
     if dev.type != "cuda":
         raise ValueError(f"scan_flat_bank: unsupported device {dev}")
+    out = launch_flat(flat, data_by_pipe)
+    with kernels.COUNT_LOCK:
+        LAUNCHES += len(flat.layout.launches)
+    return out
+
+
+def launch_flat(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
+    """Run ``cko_scan_flat`` over every launch of ``flat``'s layout on CUDA
+    inputs that ``_check_pipes`` passed; returns matched [B, G_bin] bool."""
+    d0 = data_by_pipe[flat.pipeline_ids[0]][0]
+    dev = d0.device
     _check_on(flat.sel, dev, "scan_flat_bank")
     lay = flat.layout
     b, length = d0.shape
@@ -432,15 +443,13 @@ def scan_flat_bank(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
     structs, _keep = pipe_structs([data_by_pipe[p] for p in flat.pipeline_ids])
     out = torch.empty((b, flat.n_groups), dtype=torch.bool, device=dev)
     p, i = kernels.ptr, ctypes.c_int
-    stream = kernels.stream_ptr(dev)
-    for base, recs in lay.launches:
-        args = [
-            structs[base // MAX_PIPES], i(b), i(length), i(cols), i(rpt), p(lay.tab), p(recs),
-            p(lay.grp_info), p(lay.mend), p(lay.always), i(tab_smem), i(smem), i(recs.shape[0]),
-            p(out), i(flat.n_groups), stream,
-        ]
-        fn = kernels.function("dfa_scan", "cko_scan_flat", [type(a) for a in args])
-        kernels.check(fn(*args), "dfa_scan", "cko_scan_flat")
-    with kernels.COUNT_LOCK:
-        LAUNCHES += len(lay.launches)
+    with kernels.on_device(dev) as stream:
+        for base, recs in lay.launches:
+            args = [
+                structs[base // MAX_PIPES], i(b), i(length), i(cols), i(rpt), p(lay.tab), p(recs),
+                p(lay.grp_info), p(lay.mend), p(lay.always), i(tab_smem), i(smem),
+                i(recs.shape[0]), p(out), i(flat.n_groups), stream,
+            ]
+            fn = kernels.function("dfa_scan", "cko_scan_flat", [type(a) for a in args])
+            kernels.check(fn(*args), "dfa_scan", "cko_scan_flat")
     return out

@@ -11,10 +11,15 @@ raises on anything but 0. Each wrapper counts its launches in its
 module's ``LAUNCHES`` under ``COUNT_LOCK`` (several host threads launch
 in the sidecar, and ``+=`` on a module global is not atomic). Pointers and the stream go through
 ``ctypes.c_void_p`` (a bare Python int would be cut to 32 bits).
+
+A launcher runs on the calling thread's current card (``cudaGetDevice``),
+which need not be the card its tensors are on, so every launch happens
+inside ``on_device``, which makes the tensors' card current.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -120,7 +125,12 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+@contextlib.contextmanager
+def on_device(device):
+    """Make ``device`` the calling thread's current card for the launches
+    inside, and yield the handle of its current stream (taken inside, so it
+    is that card's stream)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

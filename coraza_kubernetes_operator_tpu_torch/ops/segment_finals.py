@@ -269,11 +269,21 @@ def finals_match(embed, suffix, lengths, tables: FinalsTables, *, q: int) -> tor
     if dev.type != "cuda":
         raise ValueError(f"finals_match: unsupported device {dev}")
     _check(embed, suffix, lengths, tables, q)
+    if embed.shape[0] == 0 or tables.nf == 0:
+        return torch.empty((embed.shape[0], tables.nf), dtype=torch.bool, device=dev)
+    out = launch_finals(embed, suffix, lengths, tables, q)
+    with kernels.COUNT_LOCK:
+        LAUNCHES += 1
+    return out
+
+
+def launch_finals(embed, suffix, lengths, tables: FinalsTables, q: int) -> torch.Tensor:
+    """Run ``cko_finals_match`` on CUDA operands that ``_check`` passed
+    (T and Nf above 0); returns [T, Nf] bool."""
+    dev = embed.device
     t, lp, c = embed.shape
     ns = suffix.shape[2]
     out = torch.empty((t, tables.nf), dtype=torch.bool, device=dev)
-    if t == 0 or tables.nf == 0:
-        return out
     e = _bytes(embed)
     s = _bytes(suffix)
     if s.data_ptr() % 16:  # the kernel reads the suffix rows in 16-byte loads
@@ -282,13 +292,12 @@ def finals_match(embed, suffix, lengths, tables: FinalsTables, *, q: int) -> tor
     qt = q_tile(q, tables, ns)
     p = kernels.ptr
     i = ctypes.c_int
-    args = [
-        p(e), p(s), p(lens), p(tables.kbits), p(tables.thr), p(tables.desc), p(tables.col_group),
-        i(t), i(lp), i(c), i(q), i(ns), i(tables.w), i(tables.gf), i(tables.nf), i(qt),
-        i(tables.d_max), i(smem_bytes(qt, tables, ns)), p(out), kernels.stream_ptr(dev),
-    ]
-    fn = kernels.function("segment_finals", "cko_finals_match", [type(a) for a in args])
-    kernels.check(fn(*args), "segment_finals", "cko_finals_match")
-    with kernels.COUNT_LOCK:
-        LAUNCHES += 1
+    with kernels.on_device(dev) as stream:
+        args = [
+            p(e), p(s), p(lens), p(tables.kbits), p(tables.thr), p(tables.desc),
+            p(tables.col_group), i(t), i(lp), i(c), i(q), i(ns), i(tables.w), i(tables.gf),
+            i(tables.nf), i(qt), i(tables.d_max), i(smem_bytes(qt, tables, ns)), p(out), stream,
+        ]
+        fn = kernels.function("segment_finals", "cko_finals_match", [type(a) for a in args])
+        kernels.check(fn(*args), "segment_finals", "cko_finals_match")
     return out

@@ -6,8 +6,9 @@ window on the device (``WafEngine.prepare_blob``/``collect``), enforces
 the Engine's ``failurePolicy``, and hot-reloads rules through the cache-
 poll contract the reference's WASM plugin uses (uuid change => recompile
 => swap tables). ``SidecarConfig.device`` is None for the card; the CPU
-serves only when asked (``"cpu"``). The JAX package's gRPC ``ext_proc``
-frontend (``sidecar/extproc.py``) is not ported yet.
+serves only when asked (``"cpu"``). The gRPC ``ext_proc`` frontend
+(``sidecar/extproc.py``) opens when ``SidecarConfig.extproc_port`` (or
+``CKO_EXTPROC_PORT``) is set; ``server.py`` imports it only then.
 """
 
 from .batcher import MicroBatcher

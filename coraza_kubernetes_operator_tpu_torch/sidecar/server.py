@@ -1381,9 +1381,9 @@ class TpuEngineSidecar:
 
             self._frontend = AsyncIngestFrontend(self)
         # -- ext_proc data plane (docs/EXTPROC.md) --------------------------
-        # The JAX package's gRPC ExternalProcessor frontend is not ported
-        # yet: asking for it (flag or env) refuses to start rather than
-        # serve without the configured surface.
+        # The gateway attachment surface: a gRPC ExternalProcessor server
+        # sharing this sidecar's reply builders, batcher, governor, and
+        # tracer. Off unless a port is configured (flag or env).
         self._extproc = None
         extproc_port = config.extproc_port
         if extproc_port is None:
@@ -1394,10 +1394,13 @@ class TpuEngineSidecar:
                 except ValueError as err:
                     log.error("invalid CKO_EXTPROC_PORT; ext_proc stays off", err)
         if extproc_port is not None and extproc_port >= 0:
-            raise NotImplementedError(
-                "the ext_proc frontend is not ported to this package; unset "
-                "extproc_port / CKO_EXTPROC_PORT"
+            from .extproc import ExtProcFrontend
+
+            self._extproc = ExtProcFrontend(
+                self, extproc_port, impl=config.extproc_impl
             )
+            config.extproc_port = self._extproc.port
+            config.extproc_impl = self._extproc.impl
         self.metrics.gauge(
             "cko_ingest_connections",
             "Open connections on the async ingest frontend",

@@ -16,7 +16,8 @@ request path, and the blob path with the finals tier on and the body
 limit rejecting) must give the CPU engine's verdicts. Four host threads
 launching all four kernels at rising shared-memory sizes (in a fresh
 process) must each get their plain version's bits, and every launch
-counter must count exactly. Every test skips
+counter must count exactly; so must each kernel launched, on each card,
+from a thread whose current card was set to another one. Every test skips
 where there is no card. This file imports no
 JAX, so it also runs on the card's machine, without the JAX package's
 conftest::
@@ -356,3 +357,61 @@ def test_threads_launch_every_kernel_at_rising_smem(card):
     )
     assert out.returncode == 0, out.stderr[-4000:]
     assert out.stdout.startswith("ok"), out.stdout
+
+
+def test_launch_runs_on_the_tensors_card_not_the_threads(card):
+    """For each card, a thread whose current card was set explicitly to
+    another one (the same one where the machine has a single card) launches
+    all four kernels on tensors of that card, at sizes past the default
+    shared memory: each equals its plain version, each launch counts, and
+    the thread's current card is the one it set, after every launch."""
+    import threading
+
+    n_cards = torch.cuda.device_count()
+    errors = []
+
+    def kernels_on(dev, length, seed):
+        """(kind, kernel output, plain output, launches) on ``dev``."""
+        banks = (SMALL[:3], SMALL + MID)
+        dense = dfa.build_dense_tier([dfa.stack_dfas(d, device=dev) for d in banks], [0, 1])
+        gather = dfa_gather.build_gather_tier(
+            [dfa_gather.stack_gather_bank(d, device=dev) for d in banks], [0, 1])
+        bins, _ = dfa_flat.plan_flat_bins([(i, p, d) for i, (p, d) in enumerate(FLAT_GROUPS)],
+                                          max_slots=100000)
+        flat = dfa_flat.build_flat_bank(bins[0], device=dev)
+        x = [tuple(_on(dev, *_rows(2048, length, seed + k))) for k in range(2)]
+        by_pipe = {p: tuple(_on(dev, *_rows(2048, length, seed + p))) for p in flat.pipeline_ids}
+        e, s, l, tables, q = _finals_operands(dev, 128, length, 36, 26, 700, 600, seed, 0.05)
+        yield ("dense", lambda: dfa.scan_dense_tier(dense, x, (True, True)),
+               dfa.scan_dense_tier_plain(dense, x, (True, True)), len(dense.launches), dfa)
+        yield ("gather", lambda: dfa_gather.scan_gather_tier(gather, x, (True, True)),
+               dfa_gather.scan_gather_tier_plain(gather, x, (True, True)), len(gather.launches),
+               dfa_gather)
+        yield ("flat", lambda: dfa_flat.scan_flat_bank(flat, by_pipe),
+               dfa_flat.scan_flat_xla(flat, by_pipe), len(flat.layout.launches), dfa_flat)
+        yield ("finals", lambda: segment_finals.finals_match(e, s, l, tables, q=q),
+               segment_finals.finals_match_plain(e, s, l, tables, q=q), 1, segment_finals)
+
+    def work(d):
+        try:
+            other = (d + 1) % n_cards
+            torch.cuda.set_device(other)
+            dev = torch.device("cuda", d)
+            for kind, launch, want, n, mod in kernels_on(dev, 1024, 70 + d):
+                before = mod.LAUNCHES
+                got = launch()
+                torch.cuda.synchronize(dev)
+                assert got.device == dev, (kind, got.device)
+                assert torch.cuda.current_device() == other, (kind, torch.cuda.current_device())
+                assert mod.LAUNCHES == before + n, (kind, mod.LAUNCHES, before, n)
+                assert torch.equal(got, want), f"{kind} on card {d} from a thread on card {other}"
+        except BaseException as err:
+            errors.append(err)
+
+    for d in range(n_cards):
+        th = threading.Thread(target=work, args=(d,))
+        th.start()
+        th.join(timeout=600)
+        assert not th.is_alive(), f"card {d}: the launching thread did not finish"
+    if errors:
+        raise errors[0]
