@@ -63,13 +63,38 @@ failure exits non-zero; no phase is caught):
    through a host twin. ``/waf/v1/metrics`` must carry the build info
    (torch and CUDA versions), the compile-cache and tier-kind families,
    and the profile endpoint's trace must name the scan kernels;
+7. go-ftw conformance on the card (``conformance_phase``), the corpora
+   and the ledger read from the port's JSON mirror (no ``pyyaml``):
+   (a) the crs-lite corpus in-process on a fresh card engine, every
+   request stage in one batched window and the response-injection stages
+   through ``evaluate_response``: exactly the JAX package's result on
+   this tree (``CRS_LITE_FAILED``: 314 passed, ``["920160-1"]`` ignored,
+   the same 11 failed with the same reasons, no skipped file), the three
+   scan kernels launched; (b) the same window with
+   ``CKO_PALLAS_FINALS=1``: every stage verdict equal to (a)'s, the finals
+   kernel launched; (c) the mini corpus (``ftw/tests``) over HTTP against
+   a sidecar on the card serving ``base.conf`` + ``crs-mini.conf`` from
+   phase 6's cache server under its own key, audit log matched: green, and
+   its passed and ignored sets equal to an in-process replay on the card;
+8. the sharded engine (``sharded_phase``): a one-rank NCCL process group,
+   ``make_mesh(1, 1)``, ``ShardedWafEngine`` on crs-lite: phase 3's 4096
+   requests give phase 3's verdicts (interrupted, status, rule id) and
+   launch ``cko_scan_dense``; the device memory the rank's engine holds,
+   beside that of ``build_model``'s single-device model; then the p50 of 3
+   fresh windows beside phase 3's p50, the finals tier off in both; the
+   process group is destroyed
+   after. One card holds one NCCL rank, so the multi-rank meshes are held
+   on the CPU over gloo;
 5. after every timed window (no profiler session runs before them): each
    kernel's own device time per launch at phase 2's shapes, from one
    ``torch.profiler`` pass each (kernel events by name); then one
    profiled finals-on blob window (launches, device busy time, and no
    [T, Q, Gf] stack of per-group rows).
 
-The last lines are the kernel table (one JSON object), the card's name
+Phases run in the order 0-4, 6, 7, 8, 5. The last lines are the kernel
+table (one JSON object; ``launches`` from phase 4's window, and per kernel
+its launches on the sidecar, conformance and sharded paths where those
+reach it), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. With no card, or
 without the package beside this file, it exits non-zero and prints no
 result. ``--profile FILE`` writes the profiled phase-4 window's
@@ -102,6 +127,32 @@ BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sh
 SHAPES = ((12288, 64), (1024, 2048), (4096, 64))  # main-path tiers, then B = 4096
 SEED = 20261016
 
+
+# The go-ftw result the JAX package gives on the repo's crs-lite corpus
+# (hack/run_ftw_chunk.py; its CPU backend crashes on the last 31
+# title-sorted tests, which the port passes): 314 passed, "920160-1"
+# ignored by the ledger, and these 11 failed.
+# tests/test_torch_ftw_crs_lite.py replays these 11 and their passing
+# neighbours through the JAX package and the port, and holds both to this
+# list; it lives here because the card's machine has no JAX. The ruleset matches what
+# these tests expect to pass: 942530, for one, scores an argument named
+# "select". So the breakdown tests/test_ftw_crs_lite.py commits (325
+# passed), which only its slow-tier test checks, does not hold on this
+# tree in either package (ROADMAP C5). Phase 7a holds the card to exactly
+# the reference's result: the same failures, with the same reasons.
+CRS_LITE_FAILED = {
+    "920510-1": "stage 0: status 403 not in [200]",
+    "920550-1": "stage 0: status 403 not in [200]",
+    "920550-2": "stage 0: status 403 not in [200]",
+    "921220-1": "stage 0: status 403 not in [200]",
+    "932210-1": "stage 0: status 403 not in [200]",
+    "932210-2": "stage 0: status 403 not in [200]",
+    "934131-1": "stage 0: rule 934131 not in audit log (saw [934130, 949110])",
+    "941330-1": "stage 0: status 403 not in [200]",
+    "941360-1": "stage 0: status 200 not in [403]",
+    "942260-2": "stage 0: rule 942260 not in audit log (saw [942450, 949110])",
+    "942530-1": "stage 0: status 403 not in [200]",
+}
 
 T_START = time.perf_counter()
 
@@ -389,12 +440,12 @@ def http_call(port: int, method: str, path: str, token: str, body: bytes = b""):
         conn.close()
 
 
-def wait_for(pred, timeout_s: float, what: str, interval_s: float = 0.05) -> float:
+def wait_for(pred, timeout_s: float, what: str, interval_s: float = 0.05, phase: int = 6) -> float:
     """Seconds until ``pred()`` holds; exits non-zero past ``timeout_s``."""
     t0 = time.perf_counter()
     while not pred():
         if time.perf_counter() - t0 > timeout_s:
-            raise SystemExit(f"phase 6: timed out after {timeout_s} s waiting for {what}")
+            raise SystemExit(f"phase {phase}: timed out after {timeout_s} s waiting for {what}")
         time.sleep(interval_s)
     return time.perf_counter() - t0
 
@@ -404,11 +455,11 @@ def pct(xs, q):
     return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else float("nan")
 
 
-def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table) -> None:
-    """Phase 6: the port's sidecar on the card, driven over real sockets."""
+def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> None:
+    """Phase 6: the port's sidecar on the card, driven over real sockets;
+    ``srv`` serves ``cache`` (the port's rule-cache server)."""
     import torch
 
-    from coraza_kubernetes_operator_tpu_torch.cache import RuleSetCache, RuleSetCacheServer
     from coraza_kubernetes_operator_tpu_torch.engine import waf as waf_mod
     from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
     from coraza_kubernetes_operator_tpu_torch.engine.value_cache import ValueHitCache
@@ -435,9 +486,6 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table) -> None:
 
     for name, real in real_twins.items():
         setattr(waf_mod.WafEngine, name, counted(real))
-    cache = RuleSetCache()
-    srv = RuleSetCacheServer(cache, host="127.0.0.1", port=0)
-    srv.start()
     rules = load_ruleset_text()
     cache.put(key, rules)
     running = []
@@ -726,12 +774,211 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table) -> None:
     finally:
         for sc_ in running:
             sc_.stop()
-        srv.stop()
         for name, real in real_twins.items():
             setattr(waf_mod.WafEngine, name, real)
         for var in ("CKO_VERDICT_CACHE_MAX", "CKO_LAZY_TIERS"):
             os.environ.pop(var, None)
         os.environ["CKO_PALLAS_FINALS"] = "1"
+
+
+def conformance_phase(card, compiled, mods, table, cache, srv) -> None:
+    """Phase 7: go-ftw conformance on the card. (a) the crs-lite corpus
+    replayed in-process (every request stage in one batched window, the
+    response-injection stages through ``evaluate_response``) must give the
+    JAX package's result (``CRS_LITE_FAILED``); (b) the same batched window with the
+    finals tier on must give (a)'s verdicts; (c) the mini corpus over HTTP
+    against a sidecar on the card (rules from ``srv``, audit log matched)
+    must pass or be ignored, with the passed and ignored sets of an
+    in-process replay on the card."""
+    import torch
+
+    from coraza_kubernetes_operator_tpu_torch import ftw
+    from coraza_kubernetes_operator_tpu_torch.engine import WafEngine
+    from coraza_kubernetes_operator_tpu_torch.ftw.loader import FTW_DIR
+    from coraza_kubernetes_operator_tpu_torch.sidecar import SidecarConfig, TpuEngineSidecar
+
+    def zero():
+        for m in mods.values():
+            m.LAUNCHES = 0
+
+    def counts():
+        return {k: m.LAUNCHES for k, m in mods.items()}
+
+    def vkey(v):
+        return (v.interrupted, v.status, v.rule_id, v.matched_ids, v.scores)
+
+    overrides = ftw.load_overrides(FTW_DIR / "ftw.yml")  # the ledger's JSON mirror
+    tests, skipped = ftw.load_tests_report(FTW_DIR / "tests-crs-lite")
+    n_stages = sum(len(t.stages) for t in tests)
+    n_response = sum(s.response_status is not None for t in tests for s in t.stages)
+
+    # (a) the crs-lite corpus in-process, finals tier off (the default).
+    os.environ["CKO_PALLAS_FINALS"] = "0"
+    t0 = time.perf_counter()
+    engine = WafEngine(compiled)  # on the card
+    build_s = time.perf_counter() - t0
+    windows = []  # (requests, verdicts) of every evaluate the runner makes
+    real_evaluate = engine.evaluate
+
+    def recorded(reqs):
+        got = real_evaluate(reqs)
+        windows.append((reqs, got))
+        return got
+
+    engine.evaluate = recorded
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = ftw.FtwRunner(engine=engine, overrides=overrides).run(tests)
+    result.skipped_files = skipped
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launched = counts()
+    engine.evaluate = real_evaluate
+    batch_reqs, batch_off = windows[0]
+    log(f"phase 7a: crs-lite corpus in-process on {engine.device}: {len(tests)} tests, "
+        f"{n_stages} stages ({len(batch_reqs)} request stages in one window, {n_response} "
+        f"response-injection stages), {result.summary()['passed']} passed, ignored "
+        f"{sorted(result.ignored)}, {len(result.failed)} failed, {len(skipped)} skipped files; "
+        f"engine built in {build_s:.3f} s, replay {run_s:.3f} s; kernel launches {launched} [{card}]")
+    if result.failed != CRS_LITE_FAILED or skipped or len(tests) != 326:
+        raise SystemExit(f"phase 7a: {len(tests)} tests, skipped {skipped}, failures other than "
+                         f"the reference's: {sorted(set(result.failed.items()) ^ set(CRS_LITE_FAILED.items()))}")
+    if len(result.passed) != 326 - 1 - len(CRS_LITE_FAILED) or sorted(result.ignored) != ["920160-1"]:
+        raise SystemExit(f"phase 7a: {len(result.passed)} passed, ignored {sorted(result.ignored)}")
+    if not all(launched[k] for k in ("cko_scan_flat", "cko_scan_gather", "cko_scan_dense")):
+        raise SystemExit(f"phase 7a: a scan kernel did not launch: {launched}")
+    for k, n in launched.items():
+        table[k]["ftw_launches"] = n
+
+    # (b) the same batched request window with the finals tier on.
+    os.environ["CKO_PALLAS_FINALS"] = "1"
+    zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_on = engine.evaluate(batch_reqs)
+    on_s = time.perf_counter() - t0
+    launched = counts()
+    diff = [i for i, (a, b) in enumerate(zip(batch_on, batch_off)) if vkey(a) != vkey(b)]
+    log(f"phase 7b: the {len(batch_reqs)}-stage window with CKO_PALLAS_FINALS=1 in {on_s:.3f} s: "
+        f"{len(diff)} verdicts differ from 7a's; kernel launches {launched} [{card}]")
+    if diff or len(batch_on) != len(batch_off):
+        raise SystemExit(f"phase 7b: {len(diff)} stage verdicts differ with the finals tier on, "
+                         f"first {diff[:5]}")
+    if not launched["cko_finals_match"]:
+        raise SystemExit(f"phase 7b: cko_finals_match did not launch: {launched}")
+    table["cko_finals_match"]["ftw_launches"] = launched["cko_finals_match"]
+
+    # (c) the mini corpus over HTTP against a sidecar on the card.
+    key = "default/ftw-mini"
+    mini = "\n".join((FTW_DIR / "rules" / n).read_text() for n in ("base.conf", "crs-mini.conf"))
+    cache.put(key, mini)
+    audit = ROOT / "build" / "ftw" / "audit.log"
+    audit.parent.mkdir(parents=True, exist_ok=True)
+    audit.unlink(missing_ok=True)
+    mini_tests = ftw.load_tests(FTW_DIR / "tests")
+    if any(s.response_status is not None for t in mini_tests for s in t.stages):
+        raise SystemExit("phase 7c: the mini corpus holds a response-injection stage")
+    sc = TpuEngineSidecar(SidecarConfig(
+        cache_base_url=f"http://127.0.0.1:{srv.port}", instance_key=key, poll_interval_s=0.2,
+        host="127.0.0.1", port=0, audit_log=str(audit), audit_relevant_only=False,
+        adaptive_enabled=False, compile_budget_s=600.0))
+    t0 = time.perf_counter()
+    sc.start()
+    try:
+        wait_for(lambda: sc.serving_mode() == "promoted", 300, "promotion", phase=7)
+        up_s = time.perf_counter() - t0
+        device = sc.tenants.engine_for(None).device
+        t0 = time.perf_counter()
+        http = ftw.FtwRunner(base_url=f"http://127.0.0.1:{sc.port}", audit_log_path=str(audit),
+                             overrides=overrides).run(mini_tests)
+        http_s = time.perf_counter() - t0
+    finally:
+        sc.stop()
+    t0 = time.perf_counter()
+    inproc = ftw.FtwRunner(engine=WafEngine(mini), overrides=overrides).run(mini_tests)
+    inproc_s = time.perf_counter() - t0
+    log(f"phase 7c: mini corpus ({len(mini_tests)} tests) over HTTP against a sidecar on {device} "
+        f"(up in {up_s:.3f} s): {http.summary()} in {http_s:.3f} s; in-process on the card: "
+        f"{inproc.summary()} in {inproc_s:.3f} s; audit log {audit.stat().st_size} B [{card}]")
+    if not http.ok or device.type != "cuda":
+        raise SystemExit(f"phase 7c: over HTTP on {device}: {http.summary()}")
+    if sorted(http.passed) != sorted(inproc.passed) or http.ignored != inproc.ignored:
+        raise SystemExit(f"phase 7c: HTTP {http.summary()} differs from in-process {inproc.summary()}")
+
+
+def sharded_phase(card, compiled, reqs, verdicts, p50_phase3, mods, table, n_windows) -> None:
+    """Phase 8: the sharded engine on a one-rank NCCL group, mesh (1, 1):
+    phase 3's 4096 requests must give phase 3's verdicts and launch
+    ``cko_scan_dense``; then the p50 of fresh windows."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from coraza_kubernetes_operator_tpu_torch.corpus import synthetic_requests
+    from coraza_kubernetes_operator_tpu_torch.models.waf_model import build_model
+    from coraza_kubernetes_operator_tpu_torch.parallel import ShardedWafEngine, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1)
+    try:
+        # Device bytes the rank's engine holds, beside those of the
+        # single-device model build_model lays out from the same rules.
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sharded = ShardedWafEngine(compiled=compiled, mesh=make_mesh(1, 1))
+        build_s = time.perf_counter() - t0
+        rank_mib = (torch.cuda.memory_allocated() - mem0) / 2**20
+        rank_peak_mib = (torch.cuda.max_memory_allocated() - mem0) / 2**20
+        mem1 = torch.cuda.memory_allocated()
+        full = build_model(compiled, device=sharded.device)
+        torch.cuda.synchronize()
+        full_mib = (torch.cuda.memory_allocated() - mem1) / 2**20
+        del full
+        log(f"phase 8: device memory: the rank's sharded engine {rank_mib:.2f} MiB (peak while "
+            f"building {rank_peak_mib:.2f} MiB); build_model's single-device model "
+            f"{full_mib:.2f} MiB [{card}]")
+        model = sharded.model
+        for m in mods.values():
+            m.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded.evaluate(reqs)
+        first_s = time.perf_counter() - t0
+        launched = {k: m.LAUNCHES for k, m in mods.items()}
+        log(f"phase 8: sharded engine on mesh (1, 1) over {dist.get_backend()} on {sharded.device} "
+            f"built in {build_s:.3f} s: {len(model.banks)} DFA buckets (widths "
+            f"{model.bucket_widths}, {sum(b.t256.numel() > 0 for b in model.banks)} with a dense "
+            f"table), {len(model.segs)} segment blocks; first {len(reqs)}-request window "
+            f"{first_s * 1e3:.1f} ms; kernel launches {launched} [{card}]")
+        want = [(v.interrupted, v.status, v.rule_id) for v in verdicts]
+        diff = [i for i, v in enumerate(got) if (v.interrupted, v.status, v.rule_id) != want[i]]
+        if diff or len(got) != len(want):
+            raise SystemExit(f"phase 8: {len(diff)} sharded verdicts differ from phase 3's, "
+                             f"first {diff[:5]}")
+        if not launched["cko_scan_dense"]:
+            raise SystemExit(f"phase 8: cko_scan_dense did not launch: {launched}")
+        table["cko_scan_dense"]["sharded_launches"] = launched["cko_scan_dense"]
+        walls = []
+        for w in range(n_windows):
+            window = synthetic_requests(4096, attack_ratio=0.3, seed=100 + w)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if len(sharded.evaluate(window)) != len(window):
+                raise SystemExit("phase 8: a window returned the wrong number of verdicts")
+            walls.append(time.perf_counter() - t0)
+        p50 = statistics.median(walls)
+        log(f"phase 8: p50 sharded window {p50 * 1e3:.1f} ms over {n_windows} fresh windows "
+            f"(phase 3's windows; phase 3 p50 {p50_phase3 * 1e3:.1f} ms in this run); windows ms "
+            f"{[round(x * 1e3, 1) for x in walls]}; {sum(v.interrupted for v in got)} of the "
+            f"4096 blocked, equal to phase 3 [{card}]")
+    finally:
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -1141,10 +1388,28 @@ def main() -> int:
             pass
         probe("after one empty profiler session", 400)
 
-    # -- phase 6: the sidecar on the card ----------------------------------------
+    # -- phases 6 and 7: the sidecar, then go-ftw conformance, on the card ------
+    from coraza_kubernetes_operator_tpu_torch.cache import RuleSetCache, RuleSetCacheServer
+
+    cache = RuleSetCache()
+    srv = RuleSetCacheServer(cache, host="127.0.0.1", port=0)
+    srv.start()
+    try:
+        t0 = time.perf_counter()
+        sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv)
+        log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        conformance_phase(card, eng.compiled, mods, table, cache, srv)
+        log(f"phase 7: done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        srv.stop()
+
+    # -- phase 8: the sharded engine on a one-rank NCCL mesh --------------------
+    os.environ["CKO_PALLAS_FINALS"] = "0"  # as in phase 3, whose p50 it stands beside
     t0 = time.perf_counter()
-    sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table)
-    log(f"phase 6: done in {time.perf_counter() - t0:.1f} s")
+    sharded_phase(card, eng.compiled, reqs, verdicts, p50, mods, table, 3)
+    log(f"phase 8: done in {time.perf_counter() - t0:.1f} s")
+    os.environ["CKO_PALLAS_FINALS"] = "1"
 
     # -- phase 5: each kernel's own device time per launch ----------------------
     for kname, b, length, build, dev_name, reps in deferred:

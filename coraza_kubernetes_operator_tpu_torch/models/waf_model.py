@@ -199,14 +199,18 @@ def lgroup_onehot(lgroup: np.ndarray, n_groups: int) -> np.ndarray:
     return e_lg
 
 
-def build_model(crs: CompiledRuleSet, automata=None, device=None) -> WafModel:
+def build_model(
+    crs: CompiledRuleSet, automata=None, device=None, dfa_banks: bool = True
+) -> WafModel:
     """Lay out a CompiledRuleSet as tensors on ``device`` (``cuda`` unless
     the caller passes ``device="cpu"``). Groups are re-ordered exactly as
     the reference orders them: segment blocks by pipeline, then DFA
     buckets by (pipeline, bucket), then gather banks, then prefilter
     banks. ``automata`` (an ``AutomataPlan`` or None) turns on the
     two-level automata layout (hot-tier gather banks and approximate
-    prefilter banks)."""
+    prefilter banks). ``dfa_banks=False`` routes the DFA buckets' groups
+    but builds neither their banks nor the flat bins over them (the
+    sharded model builds its own slices of those buckets)."""
     device = resolve_device(device)
     seg_groups: dict[int, list[tuple[int, object]]] = {}
     buckets: dict[tuple[int, int], list[int]] = {}
@@ -248,9 +252,10 @@ def build_model(crs: CompiledRuleSet, automata=None, device=None) -> WafModel:
     bank_pipelines: list[int] = []
     bank_gids: list[list[int]] = []
     for (pid, _bucket), gids in sorted(buckets.items()):
-        banks.append(stack_dfas([crs.groups[g].dfa for g in gids], device=device))
-        bank_pipelines.append(pid)
-        bank_gids.append(list(gids))
+        if dfa_banks:
+            banks.append(stack_dfas([crs.groups[g].dfa for g in gids], device=device))
+            bank_pipelines.append(pid)
+            bank_gids.append(list(gids))
         for g in gids:
             remap[g] = next_new
             next_new += 1
@@ -432,7 +437,7 @@ def build_model(crs: CompiledRuleSet, automata=None, device=None) -> WafModel:
         block_kinds.append(tuple(sorted(ks)))
     for seg in segs:
         block_cost.append(float(conv_n2_cols(seg.spec)))
-    for (_pid, _bucket), gids in sorted(buckets.items()):
+    for gids in bank_gids:
         ks = set()
         for gid in gids:
             ks |= gkind_sets[gid]

@@ -50,8 +50,6 @@ _STATE_MASK = (1 << _EMIT_SHIFT) - 1
 # Launches of ``cko_scan_dense`` (the wrapper counts each one).
 LAUNCHES = 0
 
-# Pipelines one launch reads (the kernels' by-value parameter struct).
-MAX_PIPES = 8
 # Most groups one tier block walks: a bank with more is split into
 # records of at most this many groups.
 REC_GROUPS = 64
@@ -60,16 +58,6 @@ _ROWS = 128
 _MAX_COLS = 256
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_CAP = 232448
-
-
-_PipePtrs = ctypes.c_void_p * MAX_PIPES
-
-
-class ScanPipes(ctypes.Structure):
-    """``ScanPipes`` of ``csrc/dfa_scan.cu``: per pipeline slot the base
-    of its [B, L] bytes and of its [B] lengths, passed by value."""
-
-    _fields_ = [("data", _PipePtrs), ("lens", _PipePtrs)]
 
 
 def r16(n: int) -> int:
@@ -86,9 +74,9 @@ def split_launches(recs: list, slot_col: int, n_slots: int, dev) -> tuple:
     slot made local): records grouped by pipeline slot, ``MAX_PIPES``
     slots per launch, record order kept inside each launch."""
     out = []
-    for base in range(0, n_slots, MAX_PIPES):
+    for base in range(0, n_slots, kernels.MAX_PIPES):
         rows = [tuple(r[:slot_col]) + (r[slot_col] - base,) + tuple(r[slot_col + 1 :])
-                for r in recs if base <= r[slot_col] < base + MAX_PIPES]
+                for r in recs if base <= r[slot_col] < base + kernels.MAX_PIPES]
         out.append((base, i32_rows(rows, dev)))
     return tuple(out)
 
@@ -217,9 +205,9 @@ def pipe_structs(inputs) -> tuple[list, list]:
     pointers they hold). Lengths already int32 and contiguous are not
     copied."""
     keep, structs = [], []
-    for base in range(0, len(inputs), MAX_PIPES):
-        data_p, lens_p = [None] * MAX_PIPES, [None] * MAX_PIPES
-        for k, x in enumerate(inputs[base : base + MAX_PIPES]):
+    for base in range(0, len(inputs), kernels.MAX_PIPES):
+        data_p, lens_p = [None] * kernels.MAX_PIPES, [None] * kernels.MAX_PIPES
+        for k, x in enumerate(inputs[base : base + kernels.MAX_PIPES]):
             if x is not None:
                 data, lens = x
                 if lens.dtype != torch.int32:  # .to() costs microseconds even as a no-op
@@ -227,7 +215,7 @@ def pipe_structs(inputs) -> tuple[list, list]:
                 data, lens = data.contiguous(), lens.contiguous()
                 keep.append((data, lens))
                 data_p[k], lens_p[k] = data.data_ptr(), lens.data_ptr()
-        structs.append(ScanPipes(_PipePtrs(*data_p), _PipePtrs(*lens_p)))
+        structs.append(kernels.ScanPipes(kernels.PipePtrs(*data_p), kernels.PipePtrs(*lens_p)))
     return structs, keep
 
 
@@ -250,11 +238,11 @@ def launch_tier(tier: DenseTier, inputs, on, fn_name: str, extra=()) -> tuple[to
     with kernels.on_device(dev) as stream:
         for base, recs in tier.launches:
             args = [
-                structs[base // MAX_PIPES], i(b), i(length), i(cols), p(tier.tab), p(recs),
+                structs[base // kernels.MAX_PIPES], i(b), i(length), i(cols), p(tier.tab), p(recs),
                 p(tier.grp_info), p(tier.mend), p(tier.always), *extra, p(on_g), i(tab_smem),
                 i(smem), i(recs.shape[0]), i(tier.max_groups), p(out), i(tier.n_groups), stream,
             ]
-            fn = kernels.function("dfa_scan", fn_name, [type(a) for a in args])
+            fn = kernels.function("dfa_scan", fn_name)
             kernels.check(fn(*args), "dfa_scan", fn_name)
     return out, len(tier.launches)
 
@@ -408,25 +396,34 @@ def scan_dfa_bank(bank: DFABank, data: torch.Tensor, lengths: torch.Tensor) -> t
     return scan_dense_tier(bank.tier, [(data, lengths)], (True,))
 
 
-def _scan_loop(data, lengths, lookup, n_groups: int, latch_end: bool = True):
-    """Shared byte loop of the plain scans: ``lookup(t, state)`` returns the
-    packed value next + S*emit per (row, group) as int64 and S."""
+def _scan_loop(data, lengths, lookup, n_groups: int):
+    """Shared byte loop of the plain scans. ``lookup(col, state)`` returns
+    the packed value next + S*emit per (row, group) as int64 and S, for
+    ``col`` [n, 1] the step's bytes of the rows still inside their buffers
+    and ``state`` [n, G] theirs. Rows are visited by descending length, so
+    those rows are always a prefix and a step costs only the live rows.
+    Returns matched [B, G] and each row's state after its last byte (0 for
+    a row whose length passes the buffer's end)."""
     b, length = data.shape
     dev = data.device
+    lens = lengths.to(torch.int64)
+    order = torch.argsort(lens, descending=True, stable=True)
+    cols = data.index_select(0, order).to(torch.int64)
     state = torch.zeros((b, n_groups), dtype=torch.int64, device=dev)
     matched = torch.zeros((b, n_groups), dtype=torch.bool, device=dev)
-    end_state = torch.zeros_like(state)
-    lens = lengths.to(torch.int64)[:, None]
-    for t in range(length):
-        val, s = lookup(t, state)
+    live = lens[order].tolist()
+    n = b
+    for t in range(min(live[0], length) if b else 0):
+        while live[n - 1] <= t:
+            n -= 1
+        val, s = lookup(cols[:n, t : t + 1], state[:n])
         hit = val >= s
-        nxt = val - s * hit.to(torch.int64)
-        active = t < lens
-        matched |= hit & active
-        state = torch.where(active, nxt, state)
-        if latch_end:
-            end_state = torch.where(t == lens - 1, state, end_state)
-    return matched, (end_state if latch_end else state)
+        matched[:n] |= hit
+        state[:n] = val - s * hit.to(torch.int64)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(b, device=dev)
+    end_state = torch.where((lens > length)[:, None], 0, state[back])
+    return matched[back], end_state
 
 
 def scan_dfa_bank_take(bank: DFABank, data: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -435,11 +432,9 @@ def scan_dfa_bank_take(bank: DFABank, data: torch.Tensor, lengths: torch.Tensor)
     s, g = bank.n_states, bank.n_groups
     flat = bank.t256.to(torch.int64).reshape(-1)  # [256 * S * G]
     garange = torch.arange(g, dtype=torch.int64, device=data.device)[None, :]
-    cols = data.to(torch.int64)
 
-    def lookup(t, state):
-        idx = cols[:, t : t + 1] * (s * g) + state * g + garange
-        return flat[idx], s
+    def lookup(col, state):
+        return flat[col * (s * g) + state * g + garange], s
 
     matched, end_state = _scan_loop(data, lengths, lookup, g)
     end_match = bank.match_end[garange, end_state]
@@ -452,10 +447,9 @@ def scan_dfa_bank_gather(bank: DFABank, data: torch.Tensor, lengths: torch.Tenso
     garange = torch.arange(g, dtype=torch.int64, device=data.device)[None, :]
     classmap = bank.classmap.to(torch.int64)
     packed = bank.packed.to(torch.int64)
-    cols = data.to(torch.int64)
 
-    def lookup(t, state):
-        cls = classmap[cols[:, t]]  # [B, G]
+    def lookup(col, state):
+        cls = classmap[col[:, 0]]  # [n, G]
         p = packed[garange, state, cls]
         hit = (p >> _EMIT_SHIFT) & 1
         # Re-express as next + S*emit so the shared loop applies.

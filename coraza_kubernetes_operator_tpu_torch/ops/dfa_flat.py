@@ -37,7 +37,7 @@ import torch
 from ..compiler.re_dfa import DFA
 from ..utils.device import resolve_device
 from . import kernels
-from .dfa import MAX_PIPES, SMEM_CAP, _check_batch, _check_on, i32_rows, pipe_structs, r16, split_launches
+from .dfa import SMEM_CAP, _check_batch, _check_on, i32_rows, pipe_structs, r16, split_launches
 
 _LANE = 128
 _FLAT_VMEM_BUDGET = int(_os.environ.get("CKO_FLAT_VMEM_MB", "15")) * 2**20
@@ -446,10 +446,10 @@ def launch_flat(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
     with kernels.on_device(dev) as stream:
         for base, recs in lay.launches:
             args = [
-                structs[base // MAX_PIPES], i(b), i(length), i(cols), i(rpt), p(lay.tab), p(recs),
+                structs[base // kernels.MAX_PIPES], i(b), i(length), i(cols), i(rpt), p(lay.tab), p(recs),
                 p(lay.grp_info), p(lay.mend), p(lay.always), i(tab_smem), i(smem),
                 i(recs.shape[0]), p(out), i(flat.n_groups), stream,
             ]
-            fn = kernels.function("dfa_scan", "cko_scan_flat", [type(a) for a in args])
+            fn = kernels.function("dfa_scan", "cko_scan_flat")
             kernels.check(fn(*args), "dfa_scan", "cko_scan_flat")
     return out

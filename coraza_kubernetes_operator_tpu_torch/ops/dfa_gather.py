@@ -239,10 +239,9 @@ def scan_gather_bank_jnp(bank: GatherBank, data: torch.Tensor, lengths: torch.Te
     flat = bank.tC.to(torch.int64).reshape(-1)  # [C * S * G]
     classmap = bank.classmap.to(torch.int64)
     garange = torch.arange(g, dtype=torch.int64, device=data.device)[None, :]
-    cols = data.to(torch.int64)
 
-    def lookup(t, state):
-        cls = classmap[cols[:, t : t + 1]]  # [B, 1]
+    def lookup(col, state):
+        cls = classmap[col]  # [n, 1]
         return flat[cls * (s * g) + state * g + garange], s
 
     matched, end_state = _scan_loop(data, lengths, lookup, g)

@@ -9,8 +9,14 @@ use: importing this module never needs ``nvcc`` or a card.
 Launchers return ``cudaGetLastError()`` after the launch; ``check``
 raises on anything but 0. Each wrapper counts its launches in its
 module's ``LAUNCHES`` under ``COUNT_LOCK`` (several host threads launch
-in the sidecar, and ``+=`` on a module global is not atomic). Pointers and the stream go through
-``ctypes.c_void_p`` (a bare Python int would be cut to 32 bits).
+in the sidecar, and ``+=`` on a module global is not atomic).
+
+Every launcher is typed from the literal ``_ABI`` table below (the shape
+of ``native/__init__.py``'s), which ``analysis/nativelint.py`` checks
+against the ``extern "C"`` declarators in ``csrc/``: a call whose values
+do not fit the table raises ``ctypes.ArgumentError``. Pointers and the
+stream go through ``ctypes.c_void_p`` (a bare Python int would be cut to
+32 bits), scalars as ``ctypes.c_int`` instances.
 
 A launcher runs on the calling thread's current card (``cudaGetDevice``),
 which need not be the card its tensors are on, so every launch happens
@@ -34,6 +40,70 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+# The launchers' C signatures. Tokens: ptr -> c_void_p (device pointers,
+# the stream), int -> c_int, charp -> c_char_p (a NUL-terminated string),
+# pipes -> ScanPipes by value. "ret" is the return token.
+_ABI: dict = {
+    "cko_scan_dense": {
+        # pipes, B, L, Lt, tab, recs, grp_info, mend, always, on,
+        # smem_tab_bytes, smem, n_recs, gmax, out, G, stream.
+        "args": [
+            "pipes", "int", "int", "int", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr",
+            "int", "int", "int", "int", "ptr", "int", "ptr",
+        ],
+        "ret": "int",
+    },
+    "cko_scan_gather": {
+        # As cko_scan_dense, with the class maps (cmaps) before on.
+        "args": [
+            "pipes", "int", "int", "int", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr",
+            "int", "int", "int", "int", "ptr", "int", "ptr",
+        ],
+        "ret": "int",
+    },
+    "cko_scan_flat": {
+        # pipes, B, L, Lt, R, tab, recs, grp_info, mend, always,
+        # smem_tab_bytes, smem, n_recs, out, G, stream.
+        "args": [
+            "pipes", "int", "int", "int", "int", "ptr", "ptr", "ptr", "ptr", "ptr",
+            "int", "int", "int", "ptr", "int", "ptr",
+        ],
+        "ret": "int",
+    },
+    "cko_finals_match": {
+        # embed, suffix, lens, kbits, thr, desc, group, T, Lp, C, Q, NS, W,
+        # Gf, Nf, QT, Dmax, smem, out, stream.
+        "args": [
+            "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr",
+            "int", "int", "int", "int", "int", "int", "int", "int", "int", "int", "int",
+            "ptr", "ptr",
+        ],
+        "ret": "int",
+    },
+    # Defined in each source: the text of a launcher's error code.
+    "cko_error_string": {"args": ["int"], "ret": "charp"},
+}
+
+# Pipelines one launch reads (``kMaxPipes`` of ``csrc/dfa_scan.cu``).
+MAX_PIPES = 8
+PipePtrs = ctypes.c_void_p * MAX_PIPES
+
+
+class ScanPipes(ctypes.Structure):
+    """``ScanPipes`` of ``csrc/dfa_scan.cu``: per pipeline slot the base
+    of its [B, L] bytes and of its [B] lengths, passed by value."""
+
+    _fields_ = [("data", PipePtrs), ("lens", PipePtrs)]
+
+
+# Token -> ctypes type.
+_CTYPES: dict = {
+    "ptr": ctypes.c_void_p,
+    "int": ctypes.c_int,
+    "charp": ctypes.c_char_p,
+    "pipes": ScanPipes,
+}
 
 _LOCK = threading.Lock()
 COUNT_LOCK = threading.Lock()
@@ -93,9 +163,18 @@ def build() -> dict[str, Path]:
         return libs
 
 
-def function(stem: str, name: str, argtypes: list):
+def bind(lib, name: str):
+    """``lib``'s function ``name`` typed from ``_ABI``."""
+    spec = _ABI[name]
+    fn = getattr(lib, name)
+    fn.argtypes = [_CTYPES[t] for t in spec["args"]]
+    fn.restype = _CTYPES[spec["ret"]] if spec.get("ret") else None
+    return fn
+
+
+def function(stem: str, name: str):
     """The C launcher ``name`` from ``csrc/<stem>.cu``, built and loaded on
-    first use, with its argument types set."""
+    first use, typed from ``_ABI``."""
     fn = _FUNCS.get(name)
     if fn is not None:
         return fn
@@ -104,13 +183,9 @@ def function(stem: str, name: str, argtypes: list):
         lib = _LIBS.get(stem)
         if lib is None:
             lib = ctypes.CDLL(str(libs[stem]))
-            lib.cko_error_string.argtypes = [ctypes.c_int]
-            lib.cko_error_string.restype = ctypes.c_char_p
+            bind(lib, "cko_error_string")
             _LIBS[stem] = lib
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        _FUNCS[name] = fn
+        fn = _FUNCS.setdefault(name, bind(lib, name))
     return fn
 
 

@@ -298,6 +298,6 @@ def launch_finals(embed, suffix, lengths, tables: FinalsTables, q: int) -> torch
             p(tables.col_group), i(t), i(lp), i(c), i(q), i(ns), i(tables.w), i(tables.gf),
             i(tables.nf), i(qt), i(tables.d_max), i(smem_bytes(qt, tables, ns)), p(out), stream,
         ]
-        fn = kernels.function("segment_finals", "cko_finals_match", [type(a) for a in args])
+        fn = kernels.function("segment_finals", "cko_finals_match")
         kernels.check(fn(*args), "segment_finals", "cko_finals_match")
     return out

@@ -415,3 +415,79 @@ def test_launch_runs_on_the_tensors_card_not_the_threads(card):
         assert not th.is_alive(), f"card {d}: the launching thread did not finish"
     if errors:
         raise errors[0]
+
+
+def test_sharded_engine_over_nccl_at_1x1_equals_single(card):
+    """The sharded engine on a one-rank NCCL group (mesh (1, 1)): its
+    verdicts equal the single engine's on the card, and its DFA buckets
+    launch ``cko_scan_dense``. The multi-rank layouts run on the CPU over
+    gloo (tests/test_torch_parallel.py)."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+
+    from coraza_kubernetes_operator_tpu_torch.compiler.ruleset import compile_rules
+    from coraza_kubernetes_operator_tpu_torch.parallel import ShardedWafEngine, make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        reqs = [HttpRequest(method=m, uri=u, headers=h, body=b) for m, u, h, b in REQUESTS]
+        compiled = compile_rules(SMALL_RULES)
+        sharded = ShardedWafEngine(compiled=compiled, mesh=make_mesh(1, 1))
+        assert sharded.model.banks and sharded.device.type == "cuda"
+        before = dfa.LAUNCHES
+        got = sharded.evaluate(reqs)
+        torch.cuda.synchronize()
+        assert dfa.LAUNCHES > before
+    finally:
+        dist.destroy_process_group()
+    want = WafEngine(compiled).evaluate(reqs)
+    assert [(v.interrupted, v.status, v.rule_id) for v in got] == [
+        (v.interrupted, v.status, v.rule_id) for v in want]
+    assert any(v.interrupted for v in got)
+
+
+def test_abi_typed_launchers_equal_plain(card):
+    """Every launcher is bound from ``ops/kernels.py::_ABI``: at one shape
+    each kernel gives its plain version's bits, the bound types are the
+    table's, ``cko_error_string`` returns text, and a value the table does
+    not allow raises ``ctypes.ArgumentError`` before any launch."""
+    import ctypes
+
+    from coraza_kubernetes_operator_tpu_torch.ops import kernels
+
+    banks = (SMALL[:3], SMALL + MID)
+    dense = dfa.build_dense_tier([dfa.stack_dfas(d, device=card) for d in banks], [0, 1])
+    gather = dfa_gather.build_gather_tier(
+        [dfa_gather.stack_gather_bank(d, device=card) for d in banks], [0, 1])
+    bins, _ = dfa_flat.plan_flat_bins([(i, p, d) for i, (p, d) in enumerate(FLAT_GROUPS)],
+                                      max_slots=100000)
+    flat = dfa_flat.build_flat_bank(bins[0], device=card)
+    x = [tuple(_on(card, *_rows(4096, 64, 90 + k))) for k in range(2)]
+    by_pipe = {p: tuple(_on(card, *_rows(4096, 64, 90 + p))) for p in flat.pipeline_ids}
+    e, s, lens, tables, q = _finals_operands(card, 4096, 64, 36, 26, 700, 600, 91, 0.05)
+    pairs = [
+        (dfa.scan_dense_tier(dense, x, (True, True)), dfa.scan_dense_tier_plain(dense, x, (True, True))),
+        (dfa_gather.scan_gather_tier(gather, x, (True, True)),
+         dfa_gather.scan_gather_tier_plain(gather, x, (True, True))),
+        (dfa_flat.scan_flat_bank(flat, by_pipe), dfa_flat.scan_flat_xla(flat, by_pipe)),
+        (segment_finals.finals_match(e, s, lens, tables, q=q),
+         segment_finals.finals_match_plain(e, s, lens, tables, q=q)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    for name in ("cko_scan_dense", "cko_scan_gather", "cko_scan_flat", "cko_finals_match"):
+        fn = kernels._FUNCS[name]
+        assert fn.argtypes == [kernels._CTYPES[t] for t in kernels._ABI[name]["args"]], name
+        assert fn.restype is ctypes.c_int
+    for stem in ("dfa_scan", "segment_finals"):
+        assert kernels._LIBS[stem].cko_error_string(0) == b"no error"
+    finals = kernels._FUNCS["cko_finals_match"]
+    with pytest.raises(ctypes.ArgumentError):
+        finals(*[ctypes.c_int(0)] * len(finals.argtypes))  # an int where a pointer goes

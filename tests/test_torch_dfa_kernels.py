@@ -39,6 +39,7 @@ from coraza_kubernetes_operator_tpu_torch.compiler import re_dfa as tre
 from coraza_kubernetes_operator_tpu_torch.ops import dfa as tdfa
 from coraza_kubernetes_operator_tpu_torch.ops import dfa_flat as tflat
 from coraza_kubernetes_operator_tpu_torch.ops import dfa_gather as tgather
+from coraza_kubernetes_operator_tpu_torch.ops import kernels as tkernels
 
 CPU = torch.device("cpu")
 
@@ -111,7 +112,7 @@ def _launch_pipes(launches, n_slots):
     """Each launch reads at most MAX_PIPES consecutive input slots, and
     every slot is read by exactly one launch."""
     bases = [base for base, _ in launches]
-    assert bases == list(range(0, n_slots, tdfa.MAX_PIPES))
+    assert bases == list(range(0, n_slots, tkernels.MAX_PIPES))
     for _base, recs in launches:
         assert recs.dtype == torch.int32 and recs.is_contiguous()
 
@@ -136,7 +137,7 @@ def _emulate_tier(tier, inputs, on):
     b = next(x for x in inputs if x is not None)[0].shape[0]
     out = np.full((b, tier.n_groups), 7, dtype=np.int64)  # unwritten columns show
     for base, recs in tier.launches:
-        pipes = inputs[base : base + tdfa.MAX_PIPES]
+        pipes = inputs[base : base + tkernels.MAX_PIPES]
         for g0, ng, toff, telems, slot, bank in recs.tolist():
             assert toff % 8 == 0  # 16-byte aligned for the kernel's copies
             if not on_g[g0 : g0 + ng].any():
@@ -429,7 +430,7 @@ def test_pipe_structs_hold_each_launchs_pipelines():
     structs, keep = tdfa.pipe_structs(ins)
     assert len(structs) == 2 and len(keep) == 9
     for k, x in enumerate(ins):
-        st = structs[k // tdfa.MAX_PIPES]
+        st = structs[k // tkernels.MAX_PIPES]
         if x is None:
             assert st.data[k % 8] is None and st.lens[k % 8] is None
             continue

@@ -2,7 +2,9 @@
 
 - Importing every module of ``coraza_kubernetes_operator_tpu_torch``
   loads neither ``jax`` nor the JAX package (checked in a fresh
-  interpreter, since this test process has both loaded).
+  interpreter, since this test process has both loaded); the conformance,
+  sharding and analysis paths, which the card's machine runs without
+  ``pyyaml``, load no ``yaml`` either.
 - Entry points default to ``cuda`` and raise where there is none; the
   CPU is used only when the caller passes ``device="cpu"``.
 - A CPU tensor never reaches the CUDA build: the whole window runs with
@@ -51,6 +53,37 @@ def test_port_imports_no_jax():
     ).stdout.split()
     assert int(out[0]) >= 30, out
     assert out[1:] == ["[]"], out
+
+
+def test_ftw_parallel_and_analysis_paths_need_no_yaml():
+    """What chip_smoke.py's conformance and sharding phases and
+    ``cmd.analyze`` run, with ``yaml`` unimportable: the mirrored corpora
+    and ledger load, the CLI lints, and no jax, JAX package or yaml module
+    is loaded."""
+    code = textwrap.dedent(
+        """
+        import contextlib, io, sys
+        sys.modules["yaml"] = None  # import yaml -> ImportError
+        from coraza_kubernetes_operator_tpu_torch import ftw, parallel  # noqa: F401
+        from coraza_kubernetes_operator_tpu_torch.cmd import analyze
+        from coraza_kubernetes_operator_tpu_torch.ftw.loader import FTW_DIR
+        n = len(ftw.load_tests(FTW_DIR / "tests-crs-lite")) + len(ftw.load_tests(FTW_DIR / "tests"))
+        assert ftw.load_overrides(FTW_DIR / "ftw.yml")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = analyze.main(["--torchlint", "--native", "--json"])
+        bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
+                     m in ("jax", "yaml") or m.startswith(("jax.", "jaxlib", "yaml."))
+                     or m == "coraza_kubernetes_operator_tpu"
+                     or m.startswith("coraza_kubernetes_operator_tpu.")))
+        print(n, rc, bad)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300, check=True,
+    ).stdout.split()
+    assert out == ["344", "0", "[]"], out
 
 
 def test_chip_smoke_imports_no_jax():

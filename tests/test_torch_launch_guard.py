@@ -8,7 +8,8 @@ launch_finals``) must therefore call every launcher inside
 ``ops/kernels.py::on_device`` of the tensors' device, and pass the stream
 that the guard yields. Here the launchers are replaced by recorders and the
 sites run on CPU tensors: the order of guard entries, launcher calls and
-guard exits is what is checked. On the card, ``tests/test_torch_cuda.py``
+guard exits is what is checked, and that every value a site passes has
+the type ``ops/kernels.py::_ABI`` gives its launcher. On the card, ``tests/test_torch_cuda.py``
 launches each kernel from a thread whose current card was set explicitly.
 """
 
@@ -39,8 +40,11 @@ def record(monkeypatch):
         finally:
             events.append(("exit",))
 
-    def function(stem, name, argtypes):
+    def function(stem, name):
         def launch(*args):
+            # Each value is an instance of its _ABI type, as ctypes takes it.
+            want = [kernels._CTYPES[t] for t in kernels._ABI[name]["args"]]
+            assert [type(a) for a in args] == want, (name, args)
             events.append(("call", name, args[-1].value))
             return 0
         return launch
