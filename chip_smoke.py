@@ -19,19 +19,29 @@ failure exits non-zero; no phase is caught):
    kernel's output must be bit-equal to its plain version's on the card.
    Times come from CUDA events after warm-up around the wrappers' calls;
 3. the slice-1 path: ``WafEngine(crs-lite).evaluate`` on a 4096-request
-   window on the card (Python tensorize path, finals tier off), verdicts
-   identical to the same engine on the CPU, at least one request blocked,
-   every scan kernel's launch count non-zero; then the p50 window time
-   over a few fresh windows;
+   window on the card (Python tensorize path, finals tier off; each stage's
+   first sight, so eager), verdicts identical to the same engine on the
+   CPU, at least one request blocked, every scan kernel's launch count
+   non-zero. Then the stage graphs (``engine/compile_cache.py``), with the
+   engine's value cache off so a window and its twin do the same work:
+   the same window's stages captured (``prewarm``) and replayed, verdicts
+   identical to the CPU engine's; then fresh windows, each prewarmed
+   (captures and their capture and instantiation seconds logged), in
+   alternating pairs within this call: eager(a), graph(a), graph(b),
+   eager(b), eager reached by calling the stage functions directly
+   (``eager_stages``). Each graph window must only replay and give its
+   eager twin's verdicts and kernel launches; per mode the window p50
+   and the host stage split (assemble, copy-in, match, prefilter confirm,
+   post, read-back, decode), resident graphs and their pool bytes; no
+   stage may bypass its graph;
 4. the slice-2 path: the same 4096 requests as one blob through
    ``prepare_blob`` + ``collect`` on the native tiered path with
    ``CKO_PALLAS_FINALS=1``: verdicts equal to phase 3's, all four kernels
    launched, at most one fused gather launch and one fused dense launch
-   per tier; the p50 window
-   with the finals tier on and off (fresh windows, in turns) and the p50
-   native assemble time; then ``evaluate_phased`` and
-   ``evaluate_response`` against the CPU engine and
-   ``host_fallback.evaluate`` against the card's verdicts;
+   per tier; the same blob captured and replayed, verdicts equal; then
+   eager/graph pairs as in phase 3 with the finals tier on and off; then
+   ``evaluate_phased`` and ``evaluate_response`` against the CPU engine
+   and ``host_fallback.evaluate`` against the card's verdicts;
 6. the sidecar on the card (``sidecar_phase``): the port's rule-cache
    server holds crs-lite; the port's sidecar polls it with the deployed
    defaults (async frontend, windows of up to 2048 requests, 1 ms batch
@@ -62,7 +72,10 @@ failure exits non-zero; no phase is caught):
    JAX package's deployed default) is set throughout, and no stage may go
    through a host twin. ``/waf/v1/metrics`` must carry the build info
    (torch and CUDA versions), the compile-cache and tier-kind families,
-   and the profile endpoint's trace must name the scan kernels;
+   and the profile endpoint's trace (of a window whose stages were seen
+   before, so replayed) must name the scan kernels; its kernel events give
+   the window's device busy share. Each pass logs the stage cache's
+   counters; no stage may bypass its graph;
 7. go-ftw conformance on the card (``conformance_phase``), the corpora
    and the ledger read from the port's JSON mirror (no ``pyyaml``):
    (a) the crs-lite corpus in-process on a fresh card engine, every
@@ -76,6 +89,8 @@ failure exits non-zero; no phase is caught):
    a sidecar on the card serving ``base.conf`` + ``crs-mini.conf`` from
    phase 6's cache server under its own key, audit log matched: green, and
    its passed and ignored sets equal to an in-process replay on the card;
+   every stage key that bypassed its graph is logged with its shapes and
+   reason;
 8. the sharded engine (``sharded_phase``): a one-rank NCCL process group,
    ``make_mesh(1, 1)``, ``ShardedWafEngine`` on crs-lite: phase 3's 4096
    requests give phase 3's verdicts (interrupted, status, rule id) and
@@ -88,8 +103,10 @@ failure exits non-zero; no phase is caught):
 5. after every timed window (no profiler session runs before them): each
    kernel's own device time per launch at phase 2's shapes, from one
    ``torch.profiler`` pass each (kernel events by name); then one
-   profiled finals-on blob window (launches, device busy time, and no
-   [T, Q, Gf] stack of per-group rows).
+   profiled finals-on blob window, eager (launches, device busy time, and
+   no [T, Q, Gf] stack of per-group rows) and the same window replayed;
+   and one phase-3 window eager and replayed. The smoke's total seconds
+   close the log.
 
 Phases run in the order 0-4, 6, 7, 8, 5. The last lines are the kernel
 table (one JSON object; ``launches`` from phase 4's window, and per kernel
@@ -108,6 +125,8 @@ more after phase 5's sessions.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import http.client
 import json
 import os
@@ -206,6 +225,123 @@ def device_ms_per_launch(fn, kernel_name: str, reps: int) -> tuple[float | None,
     n = sum(e.count for e in events)
     us = sum(e.self_device_time_total for e in events)
     return (us / n / 1e3 if n and us else None), n
+
+
+@contextlib.contextmanager
+def eager_stages():
+    """Inside, every window stage runs its function directly (eager), not
+    through its stage graph: ``EXEC_CACHE.call`` is shadowed by a direct
+    call on the instance."""
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    EXEC_CACHE.call = lambda fn, args, statics, dyn: fn(*args, **statics, **dyn)
+    try:
+        yield
+    finally:
+        del EXEC_CACHE.call
+
+
+def cache_delta(s0: dict, s1: dict) -> dict:
+    """The change of ``EXEC_CACHE.stats()``'s counters between two reads."""
+    return {k: round(s1[k] - s0[k], 3) for k in ("hits", "misses", "captures", "compile_s",
+                                                  "trace_s", "bypasses")}
+
+
+def timed_window(engine, submit, mods, eager: bool) -> dict:
+    """One window through ``submit()`` (a prepare or prepare_blob) and
+    ``collect``, eager or through the stage graphs: its wall, host stage
+    split, launches per kernel, stage-cache counter changes and verdicts."""
+    import torch
+
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    for m in mods.values():
+        m.LAUNCHES = 0
+    s0 = EXEC_CACHE.stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with eager_stages() if eager else contextlib.nullcontext():
+        inflight = submit()
+        got = engine.collect(inflight)
+    wall = time.perf_counter() - t0
+    split = {"assemble": inflight.assemble_s, **inflight.stage_s,
+             "read_back": inflight.device_s, "decode": inflight.decode_s}
+    return {"wall": wall, "split": split, "launches": {k: m.LAUNCHES for k, m in mods.items()},
+            "cache": cache_delta(s0, EXEC_CACHE.stats()),
+            "verdicts": [(v.interrupted, v.status, v.rule_id, v.matched_ids, v.scores) for v in got]}
+
+
+def eager_graph_pairs(tag, card, engine, windows, submit, mods) -> dict:
+    """Windows in alternating pairs within this call: for each two windows
+    a, b: eager(a), graph(a), graph(b), eager(b). Every graph window must
+    replay only (its signature was captured before) and give its eager
+    twin's verdicts and kernel launches. Logs and returns the p50s."""
+    res = {"eager": [], "graph": []}
+    for i in range(0, len(windows) - 1, 2):
+        a, b = windows[i], windows[i + 1]
+        twins = {}
+        for mode, w in (("eager", a), ("graph", a), ("graph", b), ("eager", b)):
+            r = timed_window(engine, lambda: submit(w), mods, mode == "eager")
+            res[mode].append(r)
+            if mode == "graph" and (r["cache"]["misses"] or not r["cache"]["hits"]):
+                raise SystemExit(f"{tag}: a graph window did not only replay: {r['cache']}")
+            other = twins.setdefault(id(w), r)
+            if other is not r:
+                if other["verdicts"] != r["verdicts"]:
+                    diff = [j for j, (x, y) in enumerate(zip(other["verdicts"], r["verdicts"])) if x != y]
+                    raise SystemExit(f"{tag}: {len(diff)} graph verdicts differ from eager, first {diff[:5]}")
+                if other["launches"] != r["launches"]:
+                    raise SystemExit(f"{tag}: launches eager {other['launches']} != graph {r['launches']}")
+    out = {}
+    for mode, rs in res.items():
+        walls = [r["wall"] for r in rs]
+        split = {k: statistics.median(r["split"][k] for r in rs) * 1e3 for k in rs[0]["split"]}
+        out[mode] = statistics.median(walls)
+        log(f"{tag}: {mode} windows ms {[round(x * 1e3, 1) for x in walls]} (p50 "
+            f"{out[mode] * 1e3:.1f}); host stage split p50 ms "
+            f"{ {k: round(v, 2) for k, v in split.items()} }; launches per window "
+            f"{rs[0]['launches']}; stage cache per window {rs[0]['cache']} [{card}]")
+    return out
+
+
+def prewarm_windows(tag, card, engine, windows) -> None:
+    """Capture each window's stage graphs (``prewarm``), untimed: logs the
+    captures and their capture and instantiation seconds."""
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    s0 = EXEC_CACHE.stats()
+    t0 = time.perf_counter()
+    for w in windows:
+        engine.prewarm(w)
+    d = cache_delta(s0, EXEC_CACHE.stats())
+    n = max(1, d["captures"])
+    log(f"{tag}: prewarm of {len(windows)} windows in {time.perf_counter() - t0:.3f} s: "
+        f"{d['captures']} stage graphs captured, per graph capture {d['trace_s'] / n:.3f} s and "
+        f"instantiation {d['compile_s'] / n:.3f} s; resident graphs {len(EXEC_CACHE)}, "
+        f"pool {EXEC_CACHE.pool_bytes() / 2**30:.2f} GiB [{card}]")
+
+
+def profiled_window(engine, submit, eager: bool):
+    """(wall ms, device busy ms, kernel launches, per-kernel (launches, ms),
+    profiler) for one window under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with eager_stages() if eager else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            engine.collect(submit())
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Kernel events only: an aten op's self device time repeats its kernels'.
+    kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
+    n_launch = sum(e.count for e in kernel_events)
+    mine = {name: (sum(e.count for e in kernel_events if name in e.key),
+                   sum(e.self_device_time_total for e in kernel_events if name in e.key) / 1e3)
+            for name in ("finals_kernel", "gather_tier_kernel", "dense_tier_kernel", "flat_kernel")}
+    return wall_ms, device_ms, n_launch, mine, events
 
 
 class GroupRowStacks:
@@ -539,7 +675,9 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> Non
             i = diff[0] if diff else None
             raise SystemExit(f"phase 6: {what}: {len(diff)} answers differ from the CPU "
                              f"sidecar's, first {diff[:5]}: "
-                             f"{got[i] if i is not None else ''} vs {want[i] if i is not None else ''}")
+                             f"{got[i] if i is not None else ''} vs {want[i] if i is not None else ''}; "
+                             f"phase 3's statuses there {[verdicts[j].status for j in diff[:5]]}; "
+                             f"stage cache {EXEC_CACHE.stats()}")
 
     def serve(sc, tag, n, conns=8, depth=32):
         """Phase 3's first ``n`` requests over ``conns`` connections x
@@ -549,6 +687,7 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> Non
         zero()
         torch.cuda.synchronize()
         m = mark(sc)
+        s0 = EXEC_CACHE.stats()
         answers, lat, wall = drive(sc.port, payloads[:n], conns, depth)
         delay = sc.batcher.lane_delay_s[LANE_BULK] * 1e3
         launched = counts()
@@ -561,7 +700,8 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> Non
             f"{pct(steady, 0.5) * 1e3:.1f} ms p99 {pct(steady, 0.99) * 1e3:.1f} ms), "
             f"{windows} windows of mean {mean:.1f} requests, step p50 {step:.1f} ms, batcher "
             f"host stage p50 {host:.2f} ms, device stage p50 {dev:.2f} ms, errors {errs}; "
-            f"kernel launches {launched}; mode {sc.serving_mode()} [{card}]")
+            f"kernel launches {launched}; mode {sc.serving_mode()}; stage cache "
+            f"{cache_delta(s0, EXEC_CACHE.stats())}, resident graphs {len(EXEC_CACHE)} [{card}]")
         if errs or sc.serving_mode() != "promoted":
             raise SystemExit(f"phase 6: {tag}: {errs} window errors, mode {sc.serving_mode()}")
         if host_twin_calls[0]:
@@ -709,7 +849,7 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> Non
             f"{n} live windows meanwhile (mean {mean:.1f} requests) at step p50 {step:.1f} ms, "
             f"host stage p50 {host:.2f} ms, device stage p50 {dev:.2f} ms; device memory "
             f"{mem0 / 2**20:.1f} MiB before, peak {peak / 2**20:.1f} MiB with the candidate "
-            f"[{card}]; new window signatures {EXEC_CACHE.snapshot()[1] - misses0}; "
+            f"[{card}]; stage cache misses meanwhile {EXEC_CACHE.snapshot()[1] - misses0}; "
             f"probe now {got[:3]}")
         if got[:3] != (403, "deny", "990001"):
             raise SystemExit(f"phase 6: the reloaded rule does not block its probe: {got[:3]}")
@@ -745,13 +885,17 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> Non
             if f"# TYPE {family}" not in text:
                 raise SystemExit(f"phase 6: /waf/v1/metrics lacks {family}")
         prof_dir = ROOT / "build" / "profile"
+        for _ in range(4):  # the profiled window's stages: first sight, capture, then replays
+            drive(sc.port, payloads[:8], 1, 8)
         status, body = http_call(sc.port, "POST", "/waf/v1/profile", token,
                                  json.dumps({"action": "start", "dir": str(prof_dir)}).encode())
         if status != 200:
             raise SystemExit(f"phase 6: profile start {status}: {body[:200]}")
+        s0 = EXEC_CACHE.stats()
         drive(sc.port, payloads[:8], 1, 8)  # one window: the trace holds every op
         status, body = http_call(sc.port, "POST", "/waf/v1/profile", token,
                                  json.dumps({"action": "stop"}).encode())
+        profiled = cache_delta(s0, EXEC_CACHE.stats())
         if status != 200:
             raise SystemExit(f"phase 6: profile stop {status}: {body[:200]}")
         trace = Path(json.loads(body)["trace"])
@@ -763,14 +907,27 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> Non
             k = m.group(1).decode()
             names[k] = names.get(k, 0) + 1
         n_events = len(re.findall(rb'"ph":', text))
+        # Device busy share: kernel time over the span from the first kernel
+        # to the end of the last.
+        spans = [(float(t), float(d)) for t, d in re.findall(
+            rb'"cat":\s*"kernel",\s*"name":\s*"(?:[^"\\]|\\.)*",\s*"pid":\s*[^,]+,\s*"tid":'
+            rb'\s*[^,]+,\s*"ts":\s*([0-9.]+),\s*"dur":\s*([0-9.]+)', text)]
+        busy = (f"{sum(d for _t, d in spans) / 1e3:.3f} ms of "
+                f"{(max(t + d for t, d in spans) - min(t for t, _d in spans)) / 1e3:.3f} ms "
+                f"in {len(spans)} kernels" if spans else "not measured (no kernel event parsed)")
         log(f"phase 6: {info[0]}; profile trace {trace.name} ({len(text)} B, "
-            f"{n_events} events) names {names}")
+            f"{n_events} events) names {names}; the profiled window's stage cache {profiled}; "
+            f"device busy {busy} [{card}]")
         missing = [k for k in ("dense_tier_kernel", "gather_tier_kernel", "flat_kernel") if k not in names]
         if missing:
             raise SystemExit(f"phase 6: the profile trace does not name {missing}")
         trace.unlink()
-        log(f"phase 6: window signatures in this process {EXEC_CACHE.stats()}; "
+        log(f"phase 6: stage cache in this process {EXEC_CACHE.stats()}; resident graphs "
+            f"{len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes() / 2**30:.2f} GiB; "
             f"host-twin stage calls {host_twin_calls[0]}")
+        if EXEC_CACHE.bypasses:
+            raise SystemExit(f"phase 6: {EXEC_CACHE.bypasses} stage calls bypassed: "
+                             f"{EXEC_CACHE.bypassed()}")
     finally:
         for sc_ in running:
             sc_.stop()
@@ -794,8 +951,11 @@ def conformance_phase(card, compiled, mods, table, cache, srv) -> None:
 
     from coraza_kubernetes_operator_tpu_torch import ftw
     from coraza_kubernetes_operator_tpu_torch.engine import WafEngine
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
     from coraza_kubernetes_operator_tpu_torch.ftw.loader import FTW_DIR
     from coraza_kubernetes_operator_tpu_torch.sidecar import SidecarConfig, TpuEngineSidecar
+
+    s0, seen0 = EXEC_CACHE.stats(), len(EXEC_CACHE.bypassed())
 
     def zero():
         for m in mods.values():
@@ -905,6 +1065,12 @@ def conformance_phase(card, compiled, mods, table, cache, srv) -> None:
         raise SystemExit(f"phase 7c: over HTTP on {device}: {http.summary()}")
     if sorted(http.passed) != sorted(inproc.passed) or http.ignored != inproc.ignored:
         raise SystemExit(f"phase 7c: HTTP {http.summary()} differs from in-process {inproc.summary()}")
+    # Bypassed stages (a long bank's plain loop reads lengths back): each
+    # key's stage, the signature's tensor shapes and the reason.
+    bypassed = [(k[0], [a for a in k[1] if isinstance(a, tuple) and a[:1] == ("t",)], why)
+                for k, why in EXEC_CACHE.bypassed()[seen0:]]
+    log(f"phase 7: stage cache {cache_delta(s0, EXEC_CACHE.stats())}; bypassed keys "
+        f"{bypassed}")
 
 
 def sharded_phase(card, compiled, reqs, verdicts, p50_phase3, mods, table, n_windows) -> None:
@@ -927,6 +1093,9 @@ def sharded_phase(card, compiled, reqs, verdicts, p50_phase3, mods, table, n_win
     try:
         # Device bytes the rank's engine holds, beside those of the
         # single-device model build_model lays out from the same rules.
+        # Earlier phases' dead engines go first: their stage graphs would
+        # otherwise be freed by a collection in the middle of a reading.
+        gc.collect()
         torch.cuda.synchronize()
         mem0 = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1006,7 +1175,7 @@ def main() -> int:
     from coraza_kubernetes_operator_tpu_torch import native
     from coraza_kubernetes_operator_tpu_torch.corpus import synthetic_requests
     from coraza_kubernetes_operator_tpu_torch.engine import WafEngine
-    from coraza_kubernetes_operator_tpu_torch.engine import waf as waf_mod
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
     from coraza_kubernetes_operator_tpu_torch.engine.request import HttpRequest, HttpResponse
     from coraza_kubernetes_operator_tpu_torch.ftw.corpus import load_ruleset_text
     from coraza_kubernetes_operator_tpu_torch.ops import (
@@ -1234,6 +1403,8 @@ def main() -> int:
 
     # -- phase 3: the slice-1 path ---------------------------------------------
     reqs = synthetic_requests(4096, attack_ratio=0.3, seed=1)
+    mods = {**{k: mod for k, _s, mod, *_ in kernel_defs}, "cko_finals_match": segment_finals}
+    n_pairs = max(1, args.windows // 2)
     for _k, _s, mod, *_ in kernel_defs:
         mod.LAUNCHES = 0
     torch.cuda.synchronize()
@@ -1263,24 +1434,33 @@ def main() -> int:
     differ(verdicts, cpu_verdicts, "phase 3 against the CPU engine")
     log(f"phase 3: 4096 verdicts identical to the CPU engine; {blocked} blocked")
 
-    walls, host = [], []
+    # The stage graphs. From here on the engine's windows carry no value
+    # cache, so a window and its eager twin do the same work under one
+    # signature. The CPU-verified window first: its stages are captured
+    # (prewarm), then it replays.
+    eng.value_cache = None
+    prewarm_windows("phase 3", card, eng, [reqs])
+    r = timed_window(eng, lambda: eng.prepare(reqs), mods, eager=False)
+    if r["cache"]["misses"] or not r["cache"]["hits"]:
+        raise SystemExit(f"phase 3: the captured window did not only replay: {r['cache']}")
+    if r["verdicts"] != [key(v) for v in cpu_verdicts]:
+        raise SystemExit("phase 3: the replayed window's verdicts differ from the CPU engine's")
+    log(f"phase 3: the same 4096 requests replayed through their stage graphs in "
+        f"{r['wall'] * 1e3:.1f} ms: verdicts identical to the CPU engine; stage cache {r['cache']}; "
+        f"launches {r['launches']}")
+    windows3 = [synthetic_requests(4096, attack_ratio=0.3, seed=100 + w) for w in range(2 * n_pairs)]
+    prewarm_windows("phase 3", card, eng, windows3)
     torch.cuda.reset_peak_memory_stats()
-    for w in range(args.windows):
-        window = synthetic_requests(4096, attack_ratio=0.3, seed=100 + w)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        inflight = eng.prepare(window)
-        verdicts_w = eng.collect(inflight)
-        walls.append(time.perf_counter() - t0)
-        host.append(inflight.host_s)
-        if len(verdicts_w) != len(window):
-            raise SystemExit("window returned the wrong number of verdicts")
-    p50 = statistics.median(walls)
+    p3 = eager_graph_pairs("phase 3", card, eng, windows3, eng.prepare, mods)
+    p50 = p3["eager"]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"phase 3: p50 window {p50 * 1e3:.1f} ms ({4096 / p50:.0f} req/s) over "
-        f"{args.windows} fresh windows, p50 prepare {statistics.median(host) * 1e3:.1f} ms, "
-        f"peak device memory {peak:.2f} GiB; windows ms {[round(x * 1e3, 1) for x in walls]} "
-        f"[{card}]")
+    log(f"phase 3: p50 window eager {p50 * 1e3:.1f} ms ({4096 / p50:.0f} req/s), graph "
+        f"{p3['graph'] * 1e3:.1f} ms ({4096 / p3['graph']:.0f} req/s), over {2 * n_pairs} fresh "
+        f"windows each in eager/graph pairs (no value cache), peak device memory {peak:.2f} GiB; "
+        f"resident graphs {len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes() / 2**30:.2f} GiB; "
+        f"stage cache {EXEC_CACHE.stats()} [{card}]")
+    if EXEC_CACHE.bypasses:
+        raise SystemExit(f"phase 3: {EXEC_CACHE.bypasses} stage calls bypassed: {EXEC_CACHE.bypassed()}")
 
     # -- phase 4: the slice-2 path ---------------------------------------------
     os.environ["CKO_PALLAS_FINALS"] = "1"
@@ -1289,17 +1469,10 @@ def main() -> int:
     if not (eng4.native_enabled and eng4._native.tiered):
         raise SystemExit("the phase-4 engine is not on the native tiered path")
     log(f"phase 4: native engine built on {eng4.device} in {time.perf_counter() - t0:.3f} s")
-    mods = {**{k: mod for k, _s, mod, *_ in kernel_defs}, "cko_finals_match": segment_finals}
-    # Count the window's tiers (one matcher call each) around the engine's
-    # own call.
-    tier_widths = []
-    real_match = waf_mod.match_tier_packed
-
-    def counted(model_, data, *a, **k):
-        tier_widths.append(int(data.shape[1]))
-        return real_match(model_, data, *a, **k)
-
-    waf_mod.match_tier_packed = counted
+    # The window's tiers (one matcher call each), from its tiering alone.
+    tiers4, *_rest, lease = eng4._batch_tensors(reqs)
+    tier_widths = [int(t[0].shape[1]) for t in tiers4]
+    lease.release()
     for mod in mods.values():
         mod.LAUNCHES = 0
     torch.cuda.synchronize()
@@ -1308,7 +1481,6 @@ def main() -> int:
     verdicts4 = eng4.collect(inflight)
     first_s = time.perf_counter() - t0
     launches = {k: mod.LAUNCHES for k, mod in mods.items()}
-    waf_mod.match_tier_packed = real_match
     for k, n in launches.items():
         table[k]["launches"] = n
     log(f"phase 4: first blob window {first_s * 1e3:.1f} ms (assemble "
@@ -1324,27 +1496,35 @@ def main() -> int:
     differ(verdicts4, verdicts, "phase 4 against phase 3")
     log("phase 4: 4096 blob-window verdicts identical to phase 3's (and the CPU engine's)")
 
-    walls = {"1": [], "0": []}
-    assemble = []
-    for w in range(args.windows):
-        for knob in ("1", "0"):
-            os.environ["CKO_PALLAS_FINALS"] = knob
-            window = synthetic_requests(4096, attack_ratio=0.3, seed=200 + 2 * w + int(knob))
-            blob = native.serialize_requests(window)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            inflight = eng4.prepare_blob(blob, len(window))
-            if len(eng4.collect(inflight)) != len(window):
-                raise SystemExit("blob window returned the wrong number of verdicts")
-            walls[knob].append(time.perf_counter() - t0)
-            assemble.append(inflight.assemble_s)
+    eng4.value_cache = None  # as in phase 3's pairs
+    blob0 = native.serialize_requests(reqs)
+    prewarm_windows("phase 4", card, eng4, [reqs])
+    r = timed_window(eng4, lambda: eng4.prepare_blob(blob0, len(reqs)), mods, eager=False)
+    if r["cache"]["misses"] or not r["cache"]["hits"]:
+        raise SystemExit(f"phase 4: the captured blob window did not only replay: {r['cache']}")
+    if r["verdicts"] != [key(v) for v in verdicts]:
+        raise SystemExit("phase 4: the replayed blob window's verdicts differ from phase 3's")
+    log(f"phase 4: the same blob replayed through its stage graphs (finals on) in "
+        f"{r['wall'] * 1e3:.1f} ms: verdicts identical to phase 3's; stage cache {r['cache']}; "
+        f"launches {r['launches']}")
+    p4 = {}
+    for knob in ("1", "0"):
+        os.environ["CKO_PALLAS_FINALS"] = knob
+        tag = f"phase 4, finals {'on' if knob == '1' else 'off'}"
+        ws = [(w, native.serialize_requests(w)) for w in (
+            synthetic_requests(4096, attack_ratio=0.3, seed=200 + 2 * i + int(knob))
+            for i in range(2 * n_pairs))]
+        prewarm_windows(tag, card, eng4, [w for w, _b in ws])
+        p4[knob] = eager_graph_pairs(tag, card, eng4, ws, lambda w: eng4.prepare_blob(w[1], len(w[0])),
+                                     mods)
     os.environ["CKO_PALLAS_FINALS"] = "1"
-    p50_on, p50_off = statistics.median(walls["1"]), statistics.median(walls["0"])
-    log(f"phase 4: p50 blob window finals on {p50_on * 1e3:.1f} ms, off {p50_off * 1e3:.1f} ms "
-        f"over {args.windows} fresh windows each (in turns), p50 native assemble "
-        f"{statistics.median(assemble) * 1e3:.2f} ms; on ms "
-        f"{[round(x * 1e3, 1) for x in walls['1']]}, off ms "
-        f"{[round(x * 1e3, 1) for x in walls['0']]} [{card}]")
+    log(f"phase 4: p50 blob window finals on: eager {p4['1']['eager'] * 1e3:.1f} ms, graph "
+        f"{p4['1']['graph'] * 1e3:.1f} ms; finals off: eager {p4['0']['eager'] * 1e3:.1f} ms, "
+        f"graph {p4['0']['graph'] * 1e3:.1f} ms ({2 * n_pairs} fresh windows each, eager/graph "
+        f"pairs, no value cache); resident graphs {len(EXEC_CACHE)}, pool "
+        f"{EXEC_CACHE.pool_bytes() / 2**30:.2f} GiB; stage cache {EXEC_CACHE.stats()} [{card}]")
+    if EXEC_CACHE.bypasses:
+        raise SystemExit(f"phase 4: {EXEC_CACHE.bypasses} stage calls bypassed: {EXEC_CACHE.bypassed()}")
 
     t0 = time.perf_counter()
     sub = reqs[:512]
@@ -1426,8 +1606,6 @@ def main() -> int:
 
     # One profiled finals-on blob window: launches, device busy time, each
     # scan and finals kernel's events, and no [T, Q, Gf] stack of group rows.
-    from torch.profiler import ProfilerActivity, profile
-
     gfs = {t.gf for s_ in model.segs for t in s_.finals.values()} | {
         t.gf for s_ in eng4.model.segs for t in s_.finals.values()}
     qs = {w_ + 2 for w_ in tier_widths}
@@ -1437,33 +1615,45 @@ def main() -> int:
         raise SystemExit("the stack watch does not see a [T, Q, Gf] stack")
     window = synthetic_requests(4096, attack_ratio=0.3, seed=999)
     blob = native.serialize_requests(window)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
-            GroupRowStacks(gfs, qs) as watch:
-        t0 = time.perf_counter()
-        inflight = eng4.prepare_blob(blob, len(window))
-        eng4.collect(inflight)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # Kernel events only: an aten op's self device time repeats its kernels'.
-    kernel_events = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernel_events) / 1e3
-    n_launch = sum(e.count for e in kernel_events)
-    mine = {name: (sum(e.count for e in kernel_events if name in e.key),
-                   sum(e.self_device_time_total for e in kernel_events if name in e.key) / 1e3)
-            for name in ("finals_kernel", "gather_tier_kernel", "dense_tier_kernel", "flat_kernel")}
+    with GroupRowStacks(gfs, qs) as watch:
+        wall_ms, device_ms, n_launch, mine, events = profiled_window(
+            eng4, lambda: eng4.prepare_blob(blob, len(window)), eager=True)
     stacks = watch.count
-    log(f"phase 4: profiled blob window (finals on): {wall_ms:.1f} ms wall (profiler on), "
-        f"assemble {inflight.assemble_s * 1e3:.1f} ms, device busy {device_ms:.3f} ms in "
+    log(f"phase 4: profiled blob window (finals on, eager): {wall_ms:.1f} ms wall (profiler on), "
+        f"device busy {device_ms:.3f} ms ({device_ms / wall_ms:.1%}) in "
         f"{n_launch} kernel launches; (launches, device ms) {mine}; [T, Q, Gf] stacks of "
         f"group rows (Gf in {sorted(gfs)}, Q in {sorted(qs)}): {stacks} [{card}]")
     if stacks:
         raise SystemExit(f"the finals-on window built {stacks} [T, Q, Gf] stacks")
     report = events.table(sort_by="self_cuda_time_total", row_limit=40)
     log("\n".join(report.splitlines()[:25]))
+    # The same window through its stage graphs, then the Python path's
+    # window eager and replayed: device busy and launches per window.
+    eng4.prewarm(window)
+    g = profiled_window(eng4, lambda: eng4.prepare_blob(blob, len(window)), eager=False)
+    log(f"phase 4: profiled blob window (finals on, graph): {g[0]:.1f} ms wall (profiler on), "
+        f"device busy {g[1]:.3f} ms ({g[1] / g[0]:.1%}) in {g[2]} kernel launches; (launches, "
+        f"device ms) {g[3]} [{card}]")
+    graph_report = g[4].table(sort_by="self_cuda_time_total", row_limit=40)
+    log("\n".join(graph_report.splitlines()[:25]))
+    if not all(g[3][k][0] for k in ("finals_kernel", "gather_tier_kernel", "dense_tier_kernel",
+                                    "flat_kernel")):
+        log(f"phase 4: the profiler does not name every hand kernel inside the replayed graphs: {g[3]}")
+    os.environ["CKO_PALLAS_FINALS"] = "0"
+    window3 = synthetic_requests(4096, attack_ratio=0.3, seed=998)
+    eng.prewarm(window3)
+    for mode in ("eager", "graph"):
+        w_ms, d_ms, n_l, mine3, _ev = profiled_window(eng, lambda: eng.prepare(window3),
+                                                      eager=mode == "eager")
+        log(f"phase 3: profiled window ({mode}): {w_ms:.1f} ms wall (profiler on), device busy "
+            f"{d_ms:.3f} ms ({d_ms / w_ms:.1%}) in {n_l} kernel launches; (launches, device ms) "
+            f"{mine3} [{card}]")
+    os.environ["CKO_PALLAS_FINALS"] = "1"
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
-        args.profile.write_text(f"{card}\n{report}\n")
+        args.profile.write_text(f"{card}\neager\n{report}\ngraph\n{graph_report}\n")
+    log(f"stage cache at the end {EXEC_CACHE.stats()}; resident graphs {len(EXEC_CACHE)}, pool "
+        f"{EXEC_CACHE.pool_bytes() / 2**30:.2f} GiB; smoke {time.perf_counter() - T_START:.1f} s")
 
     out(json.dumps({"kernels": list(table.values())}))
     out(card)

@@ -14,11 +14,14 @@ Port of ``coraza_kubernetes_operator_tpu/engine/waf.py``. One window is
    tier's matcher stage (``match_tier_packed``) runs, approximate
    prefilter hits are confirmed on the host (``_confirm_prefilter``) and
    the post stage runs (``eval_post_tiered``). Every stage runs on the
-   engine's device: PyTorch has nothing to compile, so a window's first
-   run at a new shape is its warm, and ``EXEC_CACHE``
-   (``engine/compile_cache.py``) only counts it. The reference's lazy
-   mode, which answers not-yet-compiled stages through the host twins,
-   has no counterpart here.
+   engine's device through ``EXEC_CACHE.call`` (``engine/compile_cache.py``),
+   as in the reference: a stage's first run at a signature (its tier
+   shape, mask, finals flag, cached-row layout) is eager, its second
+   captures a CUDA graph on the model, and later windows of that
+   signature replay the graph instead of issuing the stage's ops from
+   the host. ``prewarm`` captures a batch's graphs without serving it.
+   The reference's lazy mode, which answers not-yet-compiled stages
+   through the host twins, has no counterpart here.
 2. ``collect``: read the packed verdict array back with ``.cpu()`` (the
    window's sync point), fill the value cache, decode the verdicts and
    release the window's arena lease.
@@ -42,14 +45,7 @@ import torch
 
 from ..compiler.ruleset import CompiledRuleSet, compile_rules
 from ..compiler.transforms_host import apply_pipeline
-from ..models.waf_model import (
-    WafModel,
-    build_model,
-    eval_post_tiered,
-    match_tier_packed,
-    matched_id_lists,
-    unpack_compact,
-)
+from ..models.waf_model import WafModel, build_model, matched_id_lists, unpack_compact
 from ..utils import get_logger
 from ..utils.device import resolve_device
 from .request import Extraction, HttpRequest, TargetExtractor
@@ -324,11 +320,15 @@ class InFlightBatch:
     # by the 413 / phase-1 outcome, as prepare's row exclusion gives).
     overrides: dict[int, Verdict] | None = None
     # Stage timings: host_s and assemble_s (blob -> dispatch-ready
-    # tensors) by prepare; device_s / decode_s by collect.
+    # tensors) by prepare; device_s / decode_s by collect. stage_s: host
+    # seconds of _dispatch_tiers's steps (copy_in, match, confirm, post),
+    # read from the host clock with no wait of its own (the confirm reads
+    # the match stages' rows back, so it holds their device time).
     host_s: float = 0.0
     device_s: float = 0.0
     decode_s: float = 0.0
     assemble_s: float = 0.0
+    stage_s: dict = field(default_factory=dict)
     # Staging-arena lease behind the window's tier arrays (tiered native
     # path), released by collect. Nothing reads the arena buffers after
     # prepare returns: on the card the host-to-device copies are
@@ -528,7 +528,7 @@ class WafEngine:
         # Host fallback evaluator, built on first use.
         self._host_fallback = None
         self._host_fallback_lock = threading.Lock()
-        # Distinct window shape signatures this engine has dispatched
+        # Distinct stage keys (EXEC_CACHE) this engine has dispatched
         # (cko_exec_signatures / CompileReport.exec_signatures).
         self._exec_signatures: set = set()
         # Per-tier stage timing (CKO_TIER_TIMING=1): label -> recent wall
@@ -557,8 +557,12 @@ class WafEngine:
 
     def reinit_device(self) -> None:
         """Rebuild the model's tensors on ``self.device`` (after a device
-        loss): the compiled ruleset is host state and survives. ``warmed``
-        drops until a device window completes again."""
+        loss): the compiled ruleset is host state and survives; the old
+        model's stage graphs go with it. ``warmed`` drops until a device
+        window completes again."""
+        from .compile_cache import EXEC_CACHE
+
+        EXEC_CACHE.release(self.model)  # its graphs read the old tensors
         self.model = build_model(self.compiled, automata=self.automata_plan, device=self.device)
         self.warmed = False
 
@@ -797,27 +801,18 @@ class WafEngine:
         cached=None, miss_keys=None,
     ) -> InFlightBatch:
         """Run one tiered window's device stages: one matcher call per
-        tier, the prefilter confirm, then the post stage. The one dispatch
-        site of the synchronous and the pipelined paths. The window's shape
-        signature is counted in ``EXEC_CACHE`` (a miss on its first run in
-        this process); nothing here waits for the device except the
-        prefilter confirm's read of the hit rows."""
+        tier, the prefilter confirm, then the post stage, each stage
+        through ``EXEC_CACHE.call`` (eager, captured or replayed). The one
+        dispatch site of the synchronous and the pipelined paths. Nothing
+        here waits for the device except the prefilter confirm's read of
+        the hit rows."""
         from ..ops.segment import finals_cols, finals_tier_requested
         from ..testing.faults import on_device_dispatch
-        from .compile_cache import EXEC_CACHE, batch_signature
+        from .compile_cache import stage_specs
 
         on_device_dispatch(warmed=self.warmed)
-        dev = self.device
-
-        def put(a):
-            return torch.as_tensor(a, device=dev)
-
         if masks is None:
             masks = (None,) * len(tiers)
-        sig = batch_signature(self.model, tiers, numvals, masks, cached, max_phase)
-        EXEC_CACHE.dispatch(sig)
-        self._exec_signatures.add(sig)
-        self.compiled.report.exec_signatures = len(self._exec_signatures)
         if not self._finals_logged and finals_tier_requested():
             self._finals_logged = True
             cols = [finals_cols(s.spec) for s in self.model.segs]
@@ -826,23 +821,20 @@ class WafEngine:
                 blocks=[i for i, n in enumerate(cols) if n],
                 finals_columns=sum(cols),
             )
-        tier_hits = tuple(
-            self._stage(
-                f"match:{t[0].shape[0]}x{t[0].shape[1]}", match_tier_packed,
-                self.model, put(t[0]), put(t[1]), put(t[6]), put(t[7]), mask=mask,
-            )
-            for t, mask in zip(tiers, masks)
-        )
+        *match, post = stage_specs(self.model, tiers, numvals, masks, cached, max_phase)
+        t0 = time.perf_counter()
+        match = [(label, fn, _put(args, self.device), st) for label, fn, args, st, _dyn in match]
+        _label, post_fn, (_m, _hits, pairs, numvals_t), post_st, post_dyn = _put(post, self.device)
+        t1 = time.perf_counter()
+        tier_hits = tuple(self._stage(label, fn, args, st, {}) for label, fn, args, st in match)
+        t2 = time.perf_counter()
         if self.model.prefilter_cols:
             tier_hits = self._confirm_prefilter(tier_hits, tiers, (True,) * len(tiers))
-        pairs = tuple(tuple(put(t[i]) for i in (2, 3, 4, 5, 8)) for t in tiers)
-        cached_t = (
-            None if cached is None else tuple(None if c is None else put(c) for c in cached)
-        )
+        t3 = time.perf_counter()
         packed = self._stage(
-            "post", eval_post_tiered, self.model, tier_hits, pairs, put(numvals),
-            max_phase=max_phase, cached=cached_t,
+            "post", post_fn, (self.model, tier_hits, pairs, numvals_t), post_st, post_dyn
         )
+        t4 = time.perf_counter()
         return InFlightBatch(
             out=(packed, tier_hits) if cached is not None else packed,
             n_live=n_requests,
@@ -850,18 +842,25 @@ class WafEngine:
             rejected={},
             miss_keys=miss_keys,
             cache_pop=cached is not None,
+            stage_s={"copy_in": t1 - t0, "match": t2 - t1, "confirm": t3 - t2, "post": t4 - t3},
         )
 
-    def _stage(self, label: str, fn, *args, **kwargs):
-        """``fn(*args, **kwargs)``, wall-timed per stage label when
-        ``CKO_TIER_TIMING=1``. On the card the timing records a CUDA event
-        after the stage and waits for it, so the time covers the stage's
-        device work (and costs the overlap with the next host step): a
-        bench/debug knob, never the serving default."""
+    def _stage(self, label: str, fn, args: tuple, statics: dict, dyn: dict):
+        """``EXEC_CACHE.call(fn, args, statics, dyn)``, wall-timed per stage
+        label when ``CKO_TIER_TIMING=1``. On the card the timing records a
+        CUDA event after the stage and waits for it, so the time covers the
+        stage's device work (and costs the overlap with the next host
+        step): a bench/debug knob, never the serving default."""
+        from .compile_cache import EXEC_CACHE
+
+        key = EXEC_CACHE.key_for(fn, args, statics, dyn)
+        with self._prefilter_lock:
+            self._exec_signatures.add(key)
+            self.compiled.report.exec_signatures = len(self._exec_signatures)
         if not self._tier_timing_on:
-            return fn(*args, **kwargs)
+            return EXEC_CACHE.call(fn, args, statics, dyn)
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
+        out = EXEC_CACHE.call(fn, args, statics, dyn)
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
@@ -1081,26 +1080,27 @@ class WafEngine:
     # -- warm-up -----------------------------------------------------------
 
     def batch_signature(self, requests: list[HttpRequest], max_phase: int = 2) -> tuple:
-        """The shape signature the given batch would run under (the
-        ``EXEC_CACHE`` key: model layout, tier shapes, masks, cached-row
-        shapes, numvals shape, phase bound)."""
+        """The keys the given batch's stages would run under in
+        ``EXEC_CACHE``: one per tier's matcher, then the post stage's."""
         from .compile_cache import batch_signature
 
         tiers, numvals, masks, cached, _mkeys, lease = self._batch_tensors(requests)
         if lease is not None:
             lease.release()  # shapes only; nothing dispatched
+        if masks is None:
+            masks = (None,) * len(tiers)
         return batch_signature(self.model, tiers, numvals, masks, cached, max_phase)
 
     def prewarm(self, requests: list[HttpRequest] | None = None) -> dict:
-        """Run the given batch's window once (default: the canonical
-        warmup request), plus a synthetic ``CKO_PREWARM_BATCH``-request
-        window when that is set, unless its signature already ran in this
-        process, so first-use costs (kernel builds, the allocator, cuDNN's
-        algorithm choice) are paid off the serving path. PyTorch has no
-        executable to compile ahead of time; each window run here is
-        booked in ``EXEC_CACHE`` (``compile_s``). Returns ``{"compiled": a
-        window ran, "wall_s": seconds}``."""
-        from .compile_cache import EXEC_CACHE
+        """Capture the stage graphs of the given batch's signature (default:
+        the canonical warmup request), plus those of a synthetic
+        ``CKO_PREWARM_BATCH``-request window when that is set, WITHOUT
+        serving a window (``EXEC_CACHE.warm``: one eager run of each stage
+        on a side stream, then its capture), so first-use costs (kernel
+        builds, the allocator, cuDNN's algorithm choice, the captures) are
+        paid off the serving path. Stages already captured cost nothing.
+        Returns ``{"compiled": a graph was minted, "wall_s": seconds}``."""
+        from .compile_cache import EXEC_CACHE, stage_specs
 
         if requests is None:
             requests = [warmup_request()]
@@ -1113,14 +1113,16 @@ class WafEngine:
             batches.append(synthetic_requests(warm_n, attack_ratio=0.1, seed=7))
         compiled = False
         for batch in batches:
-            sig = self.batch_signature(batch)
-            if not EXEC_CACHE.resident(sig):
-                compiled = True
-                t1 = time.perf_counter()
-                self.collect(self.prepare(batch))
-                # prepare dispatches a Reject window without its over-limit
-                # rows, under another signature: record the batch's too.
-                EXEC_CACHE.record_warm(sig, time.perf_counter() - t1)
+            tiers, numvals, masks, cached, _mkeys, lease = self._batch_tensors(batch)
+            try:
+                if masks is None:
+                    masks = (None,) * len(tiers)
+                specs = stage_specs(self.model, tiers, numvals, masks, cached, 2)
+                for _label, fn, args, statics, dyn in _put(specs, self.device):
+                    compiled = EXEC_CACHE.warm(fn, args, statics, dyn) or compiled
+            finally:
+                if lease is not None:
+                    lease.release()
         return {"compiled": compiled, "wall_s": time.perf_counter() - t0}
 
     # -- phase-split serving -------------------------------------------------
@@ -1191,3 +1193,15 @@ class WafEngine:
 
 def _numpy(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _put(x, dev):
+    """``x`` (nested tuples, lists and dicts) with each numpy array copied
+    to a tensor on ``dev``."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x, device=dev)
+    if isinstance(x, (tuple, list)):
+        return type(x)(_put(v, dev) for v in x)
+    if isinstance(x, dict):
+        return {k: _put(v, dev) for k, v in x.items()}
+    return x

@@ -575,7 +575,7 @@ def segment_tier_hits(
                 continue
             td, tl = transformed_for(seg_pipelines[i])
             out.append(match_segment_block(segs[i].kernel, segs[i].spec, td[rows], tl[rows],
-                                           cache=segs[i].finals))
+                                           cache=segs[i].finals, consts=segs[i].consts))
         return out
 
     n_seg_cols = sum(conv_n2_cols(segs[i].spec) for i in keep)
@@ -705,18 +705,16 @@ def match_tier(
     return zeros(1)
 
 
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
-
-
 def packbits(bits: torch.Tensor) -> torch.Tensor:
     """[N, M] bool → [N, ceil(M/8)] uint8, big bit order: byte-identical to
     ``np.packbits(bits, axis=1)`` (the value cache's and the reference's
-    hit-row layout)."""
+    hit-row layout). The bit weights 128 .. 1 are made on the device, so a
+    call copies nothing from the host (a CUDA graph captures it)."""
     n, m = bits.shape
     nb = (m + 7) // 8
     x = torch.nn.functional.pad(bits.to(torch.int32), (0, nb * 8 - m)).reshape(n, nb, 8)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.int32, device=bits.device)
-    return (x * w).sum(dim=2).to(torch.uint8)
+    shifts = torch.arange(7, -1, -1, dtype=torch.int32, device=bits.device)
+    return (x << shifts).sum(dim=2).to(torch.uint8)
 
 
 def _unpack_hit_rows(packed: torch.Tensor, g: int) -> torch.Tensor:

@@ -47,7 +47,7 @@ from . import kernels
 _EMIT_SHIFT = 30
 _STATE_MASK = (1 << _EMIT_SHIFT) - 1
 
-# Launches of ``cko_scan_dense`` (the wrapper counts each one).
+# Launches of ``cko_scan_dense`` (the wrapper books each one: ``kernels.book``).
 LAUNCHES = 0
 
 # Most groups one tier block walks: a bank with more is split into
@@ -107,7 +107,13 @@ class DenseTier:
         return int(self.always.shape[0])
 
     def on_groups(self, on: tuple) -> torch.Tensor:
-        """[G] uint8 on/off per group for per-bank flags ``on`` (cached)."""
+        """[G] uint8 on/off per group for per-bank flags ``on`` (cached).
+
+        Built from a host list at the first use of ``on``: a CUDA graph
+        cannot capture that copy. ``on`` follows from a match stage's
+        mask, which keys its graph (``engine/compile_cache.py``), and a
+        key's eager runs come before its capture, so a capture finds the
+        tensor built."""
         t = self._on.get(on)
         if t is None:
             flags = [f for bank, f in zip(self.banks, on) for _ in range(bank.n_groups)]
@@ -256,7 +262,6 @@ def scan_dense_tier(tier: DenseTier, inputs, on) -> torch.Tensor:
 
     CPU tensors take ``scan_dense_tier_plain``; CUDA tensors launch
     ``cko_scan_dense`` (not at all when every bank is off)."""
-    global LAUNCHES
     on = tuple(bool(f) for f in on)
     _b, _length, dev = check_tier_inputs(tier, inputs, on, "scan_dense_tier")
     if dev.type == "cpu":
@@ -264,8 +269,7 @@ def scan_dense_tier(tier: DenseTier, inputs, on) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"scan_dense_tier: unsupported device {dev}")
     out, n = launch_tier(tier, inputs, on, "cko_scan_dense")
-    with kernels.COUNT_LOCK:
-        LAUNCHES += n
+    kernels.book(__name__, n)
     return out
 
 
@@ -411,6 +415,8 @@ def _scan_loop(data, lengths, lookup, n_groups: int):
     cols = data.index_select(0, order).to(torch.int64)
     state = torch.zeros((b, n_groups), dtype=torch.int64, device=dev)
     matched = torch.zeros((b, n_groups), dtype=torch.bool, device=dev)
+    if dev.type == "cuda":
+        kernels.note_host_sync("the plain DFA loop reads the row lengths back")
     live = lens[order].tolist()
     n = b
     for t in range(min(live[0], length) if b else 0):

@@ -45,7 +45,7 @@ _BLOCK_B = 128
 _DEAD_S = float(2**30)  # pad-group state count: hit threshold never reached
 _PALLAS_MAX_LEN = int(_os.environ.get("CKO_FLAT_MAX_LEN", "2048"))
 
-# Launches of ``cko_scan_flat`` (the wrapper counts each one).
+# Launches of ``cko_scan_flat`` (the wrapper books each one: ``kernels.book``).
 LAUNCHES = 0
 
 _THREADS = 256  # threads per kernel block
@@ -66,6 +66,7 @@ class FlatLayout:
     mend: torch.Tensor  # uint8, concatenated [S_g] end-match flags
     always: torch.Tensor  # [G] uint8
     grp_slot: tuple  # per group: its input slot (index into pipeline_ids)
+    grp_slot_t: torch.Tensor  # [G] int64 grp_slot on the bank's device (the plain twin's)
     tab_bytes: tuple  # per group: its padded table bytes
     launches: tuple  # per launch: (first input slot, [n, 2] int32 (group, slot local))
 
@@ -136,6 +137,7 @@ def flat_layout(flat: FlatBank) -> FlatLayout:
         mend=torch.cat(mends).contiguous(),
         always=flat.always.to(torch.uint8).contiguous(),
         grp_slot=grp_slot,
+        grp_slot_t=torch.as_tensor(grp_slot, dtype=torch.int64, device=dev),
         tab_bytes=tuple(tab_bytes),
         launches=split_launches(list(enumerate(grp_slot)), 1, len(slot_of), dev),
     )
@@ -392,7 +394,7 @@ def scan_flat_xla(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
     tab = slot_table.reshape(-1)
     base = flat.base_g[0, :g].to(torch.int64)[None, :]
     s_g = flat.s_g[0, :g].to(torch.int64)[None, :]
-    pipe = torch.as_tensor(flat.layout.grp_slot, dtype=torch.int64, device=dev)
+    pipe = flat.layout.grp_slot_t
     bytes_g = data.to(torch.int64)[pipe]  # [G, B, L]
     lens_g = lens.to(torch.int64)[pipe].t()  # [B, G]
 
@@ -417,7 +419,6 @@ def scan_flat_bank(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
 
     CPU tensors take the plain twin; CUDA tensors launch ``cko_scan_flat``
     (once per ``MAX_PIPES`` pipelines of the bin)."""
-    global LAUNCHES
     d0 = _check_pipes(flat, data_by_pipe, "scan_flat_bank")
     dev = d0.device
     if dev.type == "cpu":
@@ -425,8 +426,7 @@ def scan_flat_bank(flat: FlatBank, data_by_pipe: dict) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"scan_flat_bank: unsupported device {dev}")
     out = launch_flat(flat, data_by_pipe)
-    with kernels.COUNT_LOCK:
-        LAUNCHES += len(flat.layout.launches)
+    kernels.book(__name__, len(flat.layout.launches))
     return out
 
 

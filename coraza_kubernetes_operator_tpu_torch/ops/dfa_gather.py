@@ -57,7 +57,7 @@ _PALLAS_BLOCK_B = 128
 # Greedy bin cap on joint classes.
 _MAX_JOINT_CLASSES = 120
 
-# Launches of ``cko_scan_gather`` (the wrapper counts each one).
+# Launches of ``cko_scan_gather`` (the wrapper books each one: ``kernels.book``).
 LAUNCHES = 0
 
 @dataclass
@@ -192,7 +192,6 @@ def scan_gather_tier(tier: GatherTier, inputs, on) -> torch.Tensor:
 
     CPU tensors take ``scan_gather_tier_plain``; CUDA tensors launch
     ``cko_scan_gather`` (not at all when every bank is off)."""
-    global LAUNCHES
     on = tuple(bool(f) for f in on)
     _b, _length, dev = check_tier_inputs(tier, inputs, on, "scan_gather_tier")
     if dev.type == "cpu":
@@ -200,8 +199,7 @@ def scan_gather_tier(tier: GatherTier, inputs, on) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"scan_gather_tier: unsupported device {dev}")
     out, n = launch_tier(tier, inputs, on, "cko_scan_gather", extra=(kernels.ptr(tier.cmaps),))
-    with kernels.COUNT_LOCK:
-        LAUNCHES += n
+    kernels.book(__name__, n)
     return out
 
 

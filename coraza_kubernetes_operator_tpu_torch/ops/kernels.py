@@ -8,8 +8,13 @@ use: importing this module never needs ``nvcc`` or a card.
 
 Launchers return ``cudaGetLastError()`` after the launch; ``check``
 raises on anything but 0. Each wrapper counts its launches in its
-module's ``LAUNCHES`` under ``COUNT_LOCK`` (several host threads launch
-in the sidecar, and ``+=`` on a module global is not atomic).
+module's ``LAUNCHES`` through ``book``, under ``COUNT_LOCK`` (several
+host threads launch in the sidecar, and ``+=`` on a module global is not
+atomic). A CUDA graph capture runs the wrappers without running a
+kernel, and its replays run no Python: so while a thread captures
+(``record_launches``) its bookings go to the capture's record, and each
+replay books that record (``book_record``). A window's counts are then
+the same whether its stages ran eagerly or replayed.
 
 Every launcher is typed from the literal ``_ABI`` table below (the shape
 of ``native/__init__.py``'s), which ``analysis/nativelint.py`` checks
@@ -31,6 +36,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
@@ -109,6 +115,66 @@ _LOCK = threading.Lock()
 COUNT_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 _FUNCS: dict[str, object] = {}
+# Per thread: the launch record of the capture it runs (None outside one)
+# and the host syncs noted since ``watch_host_syncs`` began (None when
+# nothing watches).
+_THREAD = threading.local()
+
+
+def book(module: str, n: int) -> None:
+    """Count ``n`` launches in ``sys.modules[module].LAUNCHES``, or in the
+    record of the capture this thread runs."""
+    rec = getattr(_THREAD, "launches", None)
+    if rec is not None:
+        rec[module] = rec.get(module, 0) + n
+        return
+    with COUNT_LOCK:
+        mod = sys.modules[module]
+        mod.LAUNCHES += n
+
+
+def book_record(rec: dict) -> None:
+    """Book a capture's record: what one replay of its graph launched."""
+    if not rec:
+        return
+    with COUNT_LOCK:
+        for module, n in rec.items():
+            mod = sys.modules[module]
+            mod.LAUNCHES += n
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Inside, this thread's ``book`` calls fill the yielded dict (module
+    name -> launches) instead of the counters."""
+    prev = getattr(_THREAD, "launches", None)
+    rec: dict[str, int] = {}
+    _THREAD.launches = rec
+    try:
+        yield rec
+    finally:
+        _THREAD.launches = prev
+
+
+def note_host_sync(reason: str) -> None:
+    """Say that the running stage waits for the device from the host (a
+    read-back it branches on). A CUDA graph cannot hold such a stage."""
+    seen = getattr(_THREAD, "syncs", None)
+    if seen is not None:
+        seen.append(reason)
+
+
+@contextlib.contextmanager
+def watch_host_syncs():
+    """Inside, this thread's ``note_host_sync`` reasons fill the yielded
+    list."""
+    prev = getattr(_THREAD, "syncs", None)
+    seen: list[str] = []
+    _THREAD.syncs = seen
+    try:
+        yield seen
+    finally:
+        _THREAD.syncs = prev
 
 
 def sources() -> list[Path]:

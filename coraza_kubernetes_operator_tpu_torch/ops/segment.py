@@ -113,6 +113,9 @@ class SegmentBlock:
     # The finals tier's constant operands per device, built at first use
     # (``match_segment_block``'s ``cache``).
     finals: dict = field(default_factory=dict, init=False, repr=False, compare=False)
+    # The static chain program and its constants per device, built at
+    # first use (``match_segment_block``'s ``consts``).
+    consts: dict = field(default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def n_groups(self) -> int:
@@ -365,6 +368,7 @@ def match_segment_block(
     lengths: torch.Tensor,  # [T] int32
     *,
     cache: dict,
+    consts: dict | None = None,
 ) -> torch.Tensor:
     """Returns group hits [T, n_groups] bool.
 
@@ -378,42 +382,58 @@ def match_segment_block(
 
     ``cache`` is the block's ``SegmentBlock.finals``: the tier's constant
     operands (``segment_finals.FinalsTables``), built at the first call
-    with the tier on and kept across calls."""
-    return _match(kernel, spec, data, lengths, finals_tier_requested(), cache)
+    with the tier on and kept across calls. ``consts`` is the block's
+    ``SegmentBlock.consts``: the static chain program and its device
+    constants (``_block_consts``), kept across calls, so that a call after
+    the first sends nothing from the host to the device and a CUDA graph
+    can capture it. None builds them for this call alone."""
+    return _match(kernel, spec, data, lengths, finals_tier_requested(), cache, consts=consts)
 
 
 def finals_inputs(kernel, spec: SegmentSpec, data: torch.Tensor, lengths: torch.Tensor,
-                  *, cache: dict):
+                  *, cache: dict, consts: dict | None = None):
     """The finals tier's operands for ``data``, exactly as
     ``match_segment_block`` hands them to ``finals_match`` with the tier
     on: ``(embed, suffix, lengths, tables, q)``, or None when the block has
     no finals column."""
-    return _match(kernel, spec, data, lengths, True, cache, inputs_only=True)
+    return _match(kernel, spec, data, lengths, True, cache, inputs_only=True, consts=consts)
 
 
-def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: dict,
-           inputs_only=False):
-    t, ln = data.shape
-    dev = data.device
-    w = spec.w
-    q = ln + 2  # chain positions: window starts 0 .. L+1
-    lengths = lengths.to(torch.int32)
-    # Front NUL pad (position 0) + right slack so every window is full.
-    dpad = F.pad(data.to(torch.int32), (1, w))  # [T, 1+L+W]
+@dataclass
+class _Program:
+    """A block's static chain program: everything ``_match`` derives from
+    the spec alone."""
 
-    # 1. embed: channel planes from comparisons only.
-    planes = [_channel_plane(c, dpad) for c in spec.channels]
+    # No-chain-first branches by batched signature -> branch indices.
+    buckets: dict
+    # Distinct suffixes of the seg-first branches: (ops, a_end) -> sid.
+    suffix_ids: dict
+    # Suffix signature -> [(suffix key, sid)], batched right to left.
+    struct: dict
+    # (sid, n_lead, n_real, a_start) -> [(branch, first segment channel)].
+    finals: dict
+    # Conv column layout: every consumer reads a contiguous slice.
+    col_order: tuple
+    final_alloc: dict
+    final_gidsets: dict
+    struct_alloc: dict
+    bucket_alloc: dict
+    n_finals_cols: int  # the finals columns, allocated first
+    gap_classes: tuple  # distinct 'gapcls' interval sets, in first-use order
+    col_groups: tuple  # per hit column (buckets, then finals): gid or gid set
 
-    def stack_planes(dim: int) -> torch.Tensor:
-        """[T, C, 1+L+W] (dim 1, conv1d's layout) or [T, 1+L+W, C] (dim 2,
-        the finals tier's) bool."""
-        if planes:
-            return torch.stack(planes, dim=dim)
-        shape = [t, dpad.shape[1]]
-        shape.insert(dim, 0)
-        return torch.zeros(shape, dtype=torch.bool, device=dev)
 
-    # --- static chain program (pure Python) ---
+@dataclass
+class _DeviceConsts:
+    """A block's constants on one device."""
+
+    kernel_p: torch.Tensor  # [W, C, N2] the kernel's columns in col_order
+    weights: dict  # off -> [N2 - off, C, W] conv weight in the conv dtype
+    b2g: torch.Tensor | None  # [hit columns, G] float32 0/1: column -> group
+    always: torch.Tensor | None  # [G] bool: groups that always match
+
+
+def _program(spec: SegmentSpec) -> _Program:
     old_path: list[int] = []
     chain_first: list[int] = []
     for bi, (_gid, prog, _a_start, _a_end) in enumerate(spec.branches):
@@ -452,7 +472,6 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
     for skey, sid in suffix_ids.items():
         struct.setdefault(_suffix_sig(skey), []).append((skey, sid))
 
-    # --- conv column layout: every consumer reads a contiguous slice ---
     col_order: list[int] = []
 
     def alloc(chs: list[int]) -> tuple[int, int]:
@@ -491,14 +510,92 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
     if not col_order:
         col_order = [0]
 
+    gap_classes = tuple(dict.fromkeys(
+        el[1] for _, prog, _, _ in spec.branches for el in prog if el[0] == "gapcls"
+    ))
+    col_groups = [spec.branches[bi][0] for idxs in buckets.values() for bi in idxs]
+    for gk in finals:
+        col_groups.extend(final_gidsets[gk])  # deduped: one col -> gid set
+    return _Program(
+        buckets=buckets, suffix_ids=suffix_ids, struct=struct, finals=finals,
+        col_order=tuple(col_order), final_alloc=final_alloc, final_gidsets=final_gidsets,
+        struct_alloc=struct_alloc, bucket_alloc=bucket_alloc,
+        n_finals_cols=sum(len(gs) for gs in final_gidsets.values()),
+        gap_classes=gap_classes, col_groups=tuple(col_groups),
+    )
+
+
+def _block_consts(kernel, spec: SegmentSpec, dev, store: dict) -> tuple[_Program, _DeviceConsts]:
+    """The block's program and its constants on ``dev``, from ``store``
+    (``SegmentBlock.consts``), built there at first use. Building copies
+    host arrays to the device; later calls find them built."""
+    prog = store.get("program")
+    if prog is None:
+        prog = store["program"] = _program(spec)
+    dc = store.get(dev)
+    if dc is None:
+        kernel_p = kernel[:, :, torch.as_tensor(prog.col_order, device=kernel.device)].to(dev)
+        b2g = always = None
+        if spec.branches:
+            b2g_np = np.zeros((len(prog.col_groups), spec.n_groups), dtype=np.float32)
+            for ci, gid in enumerate(prog.col_groups):
+                b2g_np[ci, list(gid) if isinstance(gid, set) else gid] = 1
+            b2g = torch.as_tensor(b2g_np, device=dev)
+        if spec.always:
+            al = np.zeros(spec.n_groups, dtype=bool)
+            al[list(spec.always)] = True
+            always = torch.as_tensor(al, device=dev)
+        dc = store[dev] = _DeviceConsts(kernel_p=kernel_p, weights={}, b2g=b2g, always=always)
+    return prog, dc
+
+
+def _conv_weight(dc: _DeviceConsts, off: int, dev) -> torch.Tensor:
+    """[N2 - off, C, W] conv weight without the first ``off`` columns."""
+    weight = dc.weights.get(off)
+    if weight is None:
+        weight = dc.weights[off] = (
+            dc.kernel_p[:, :, off:].permute(2, 1, 0).to(dtype=_conv_dtype(dev)).contiguous()
+        )
+    return weight
+
+
+def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: dict,
+           inputs_only=False, consts: dict | None = None):
+    t, ln = data.shape
+    dev = data.device
+    w = spec.w
+    q = ln + 2  # chain positions: window starts 0 .. L+1
+    lengths = lengths.to(torch.int32)
+    # Front NUL pad (position 0) + right slack so every window is full.
+    dpad = F.pad(data.to(torch.int32), (1, w))  # [T, 1+L+W]
+
+    # 1. embed: channel planes from comparisons only.
+    planes = [_channel_plane(c, dpad) for c in spec.channels]
+
+    def stack_planes(dim: int) -> torch.Tensor:
+        """[T, C, 1+L+W] (dim 1, conv1d's layout) or [T, 1+L+W, C] (dim 2,
+        the finals tier's) bool."""
+        if planes:
+            return torch.stack(planes, dim=dim)
+        shape = [t, dpad.shape[1]]
+        shape.insert(dim, 0)
+        return torch.zeros(shape, dtype=torch.bool, device=dev)
+
+    # The static chain program (pure Python) and its device constants,
+    # cached on the block: buckets, suffixes, finals and the conv column
+    # layout, in which every consumer reads a contiguous slice.
     # The finals tier takes the finals columns, allocated first ([0, off)),
     # out of the conv; mslice then reads conv columns shifted by off. The
     # conv's exclusion and the dispatch below read the same `off`.
-    n_finals_cols = sum(len(gs) for gs in final_gidsets.values())
+    prog, dc = _block_consts(kernel, spec, dev, {} if consts is None else consts)
+    n_finals_cols = prog.n_finals_cols
     tier = finals_tier and n_finals_cols > 0
     if inputs_only and not tier:
         return None
     off = n_finals_cols if tier else 0
+    weight = _conv_weight(dc, off, dev)
+    buckets, suffix_ids, struct, finals = prog.buckets, prog.suffix_ids, prog.struct, prog.finals
+    struct_alloc, bucket_alloc, final_alloc = prog.struct_alloc, prog.bucket_alloc, prog.final_alloc
 
     # 2. conv: all segments, all start positions. out[t, p, n] == 2W ⇔
     # segment n matches the window starting at padded position p.
@@ -507,8 +604,6 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
     # default for float32 convolutions) all give the exact integer — no
     # global precision flag is needed or set.
     cdt = _conv_dtype(dev)
-    kernel_p = kernel[:, :, torch.as_tensor(col_order, device=kernel.device)]
-    weight = kernel_p[:, :, off:].permute(2, 1, 0).to(device=dev, dtype=cdt).contiguous()
     if weight.shape[0] and weight.shape[1]:  # [N2 - off, C, W]
         out = F.conv1d(stack_planes(1).to(cdt), weight)  # [T, N2 - off, Q]
     else:  # every column is a finals column, or no byte channel: nothing matches
@@ -529,20 +624,18 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
     # in float32 and in TF32), an exclusive cumsum above _NCE_MATMUL_MAX_Q.
     tri_excl = None
     _tabs_cache: dict[tuple, tuple] = {}
-    for _, prog, _, _ in spec.branches:
-        for el in prog:
-            if el[0] == "gapcls" and el[1] not in _tabs_cache:
-                in_c = _in_class(el[1], dpad)[:, :q]  # byte at p ∈ class
-                if q > _NCE_MATMUL_MAX_Q:
-                    non_i = (~in_c).to(torch.int32)
-                    nce = torch.cumsum(non_i, dim=1, dtype=torch.int32) - non_i
-                else:
-                    if tri_excl is None:
-                        tri_excl = torch.triu(
-                            torch.ones((q, q), dtype=torch.float32, device=dev), 1
-                        )  # [p', p]: p' < p
-                    nce = ((~in_c).to(torch.float32) @ tri_excl).to(torch.int32)
-                _tabs_cache[el[1]] = (in_c, nce)
+    for ivs in prog.gap_classes:
+        in_c = _in_class(ivs, dpad)[:, :q]  # byte at p ∈ class
+        if q > _NCE_MATMUL_MAX_Q:
+            non_i = (~in_c).to(torch.int32)
+            nce = torch.cumsum(non_i, dim=1, dtype=torch.int32) - non_i
+        else:
+            if tri_excl is None:
+                tri_excl = torch.triu(
+                    torch.ones((q, q), dtype=torch.float32, device=dev), 1
+                )  # [p', p]: p' < p
+            nce = ((~in_c).to(torch.float32) @ tri_excl).to(torch.int32)
+        _tabs_cache[ivs] = (in_c, nce)
 
     big = 1 << 20
 
@@ -663,7 +756,7 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
                 a0, a1 = final_alloc[key]
                 col_group[a0:a1] = slot
             desc = [(sid_col[sid], nl, nr, int(a_st)) for sid, nl, nr, a_st in finals]
-            weights = kernel_p[:, :, :off].reshape(-1, off).to(dev)  # [W*C, Nf]
+            weights = dc.kernel_p[:, :, :off].reshape(-1, off)  # [W*C, Nf]
             cache[dev] = finals_tables(weights, desc, col_group, w=w)
         tier_args = (
             stack_planes(2),  # [T, 1+L+W, C]
@@ -677,10 +770,8 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
     hits = torch.zeros((t, spec.n_groups), dtype=torch.bool, device=dev)
     if spec.branches:
         cols: list[torch.Tensor] = []
-        col_groups: list = []
         for sig, idxs in buckets.items():
             cols.append(run_bucket(sig, idxs))  # [T, len(idxs)]
-            col_groups.extend(spec.branches[bi][0] for bi in idxs)
         if tier:
             cols.append(finals_match(*tier_args, q=q))  # [T, Nf]
         else:
@@ -690,20 +781,9 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
                 gj = group_reach(s_store[sid], n_lead, n_real, a_start, iota, len1)  # [T, Q]
                 a0, a1 = final_alloc[key]
                 cols.append((mslice(a0, a1) & gj[:, :, None]).any(dim=1))  # [T, NB]
-        for gk in finals:
-            col_groups.extend(final_gidsets[gk])  # deduped: one col → gid set
-        bh_all = torch.cat(cols, dim=1)
-        b2g = np.zeros((len(col_groups), spec.n_groups), dtype=np.float32)
-        for ci, gid in enumerate(col_groups):
-            if isinstance(gid, set):
-                for g in gid:
-                    b2g[ci, g] = 1
-            else:
-                b2g[ci, gid] = 1
+        bh_all = torch.cat(cols, dim=1)  # columns in prog.col_groups order
         # 0/1 operands, sums ≤ branches per group: exact in float32 and TF32.
-        hits = (bh_all.to(torch.float32) @ torch.as_tensor(b2g, device=dev)) > 0
-    if spec.always:
-        al = torch.zeros(spec.n_groups, dtype=torch.bool, device=dev)
-        al[list(spec.always)] = True
-        hits = hits | al[None, :]
+        hits = (bh_all.to(torch.float32) @ dc.b2g) > 0
+    if dc.always is not None:
+        hits = hits | dc.always[None, :]
     return hits

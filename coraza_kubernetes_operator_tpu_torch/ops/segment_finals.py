@@ -54,7 +54,7 @@ import torch.nn.functional as F
 
 from . import kernels
 
-# Launches of ``cko_finals_match`` (the wrapper counts each one).
+# Launches of ``cko_finals_match`` (the wrapper books each one: ``kernels.book``).
 LAUNCHES = 0
 
 # Score elements (rows x max(Nf, Gf) x Q) of one chunk of the plain version.
@@ -262,7 +262,6 @@ def finals_match(embed, suffix, lengths, tables: FinalsTables, *, q: int) -> tor
     """[T, Nf] bool: column n of row t matched at some reachable window
     start. CPU tensors take ``finals_match_plain``; CUDA tensors launch
     ``cko_finals_match``; other devices raise."""
-    global LAUNCHES
     dev = embed.device
     if dev.type == "cpu":
         return finals_match_plain(embed, suffix, lengths, tables, q=q)
@@ -272,8 +271,7 @@ def finals_match(embed, suffix, lengths, tables: FinalsTables, *, q: int) -> tor
     if embed.shape[0] == 0 or tables.nf == 0:
         return torch.empty((embed.shape[0], tables.nf), dtype=torch.bool, device=dev)
     out = launch_finals(embed, suffix, lengths, tables, q)
-    with kernels.COUNT_LOCK:
-        LAUNCHES += 1
+    kernels.book(__name__, 1)
     return out
 
 

@@ -1038,34 +1038,34 @@ class TpuEngineSidecar:
             on_lost=self._m_device_lost.inc,
             on_recovered=self.degraded.breaker.record_success,
         )
-        # -- window shape signatures (engine/compile_cache.py) --------------
-        # Process-wide: hits = window dispatches at a shape signature that
-        # ran before in this process (hot reloads and tenant engines of one
-        # layout share them), misses = first runs of a signature,
-        # cko_compile_s = seconds prewarm spent running warm-up windows.
-        # PyTorch compiles nothing, so the bypass family stays 0. Sampled
-        # at render time, same idiom as the reload counters above.
+        # -- stage graphs (engine/compile_cache.py) ---------------------------
+        # Process-wide: hits = stage calls that replayed a captured CUDA
+        # graph, misses = a key's first (eager) run and its capture,
+        # cko_compile_s = graph instantiation seconds, bypasses = calls run
+        # eagerly because their key cannot be captured. The capture passes'
+        # seconds (trace_s) are in /waf/v1/stats, as in the reference.
+        # Sampled at render time, same idiom as the reload counters above.
         from ..engine.compile_cache import EXEC_CACHE
 
         self.metrics.gauge(
             "cko_compile_cache_hits_total",
-            "Window dispatches at a shape signature run before in this process",
+            "Stage calls served by replaying a resident CUDA graph",
         ).set_function(lambda: float(EXEC_CACHE.hits))
         self.metrics.gauge(
             "cko_compile_cache_misses_total",
-            "First runs of a window shape signature",
+            "Stage calls at a key with no graph yet (first eager run, capture)",
         ).set_function(lambda: float(EXEC_CACHE.misses))
         self.metrics.gauge(
             "cko_compile_s",
-            "Cumulative seconds prewarm spent running warm-up windows",
+            "Cumulative seconds spent instantiating captured stage graphs",
         ).set_function(lambda: float(EXEC_CACHE.compile_s))
         self.metrics.gauge(
             "cko_compile_cache_entries",
-            "Distinct window shape signatures run in this process",
+            "Resident stage graphs, over every live model",
         ).set_function(lambda: float(len(EXEC_CACHE)))
         self.metrics.gauge(
             "cko_compile_cache_bypass_total",
-            "Always 0: the port has no compiled executable to bypass",
+            "Stage calls run eagerly because their key cannot be captured",
         ).set_function(lambda: float(EXEC_CACHE.bypasses))
         self.metrics.gauge(
             "cko_engine_dedup_total",
@@ -1140,7 +1140,7 @@ class TpuEngineSidecar:
         ).set_function(lambda: float(self.tenants.total_rollbacks_forced))
         self.metrics.gauge(
             "cko_compile_inflight",
-            "Always 0: the port compiles and warms nothing in the background",
+            "Stage graph captures running",
         ).set_function(lambda: float(EXEC_CACHE.inflight))
         # -- cold-compile collapse (docs/COMPILE_CACHE.md) ------------------
         self.metrics.gauge(

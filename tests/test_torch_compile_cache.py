@@ -1,11 +1,14 @@
-"""PyTorch port: the window shape-signature counters.
+"""PyTorch port: the per-stage executables (``EXEC_CACHE``).
 
 - Two rulesets with one bucketed layout have equal batch signatures in the
-  port, as in the JAX package; the second engine's windows hit the first
-  one's signature (no new miss) and still give its own verdicts.
-- A new signature's first run is a miss, later dispatches hit, probes
-  count nothing, and counting never routes a window off the device.
-- ``prewarm`` runs a window once per new signature and books its seconds.
+  port, as in the JAX package; each model keeps its own stage entries, so
+  the second engine's first window is a miss of its own (the JAX package
+  shares one executable), and each gives its own verdicts.
+- A key's first run is a miss (eager), its second a miss that captures,
+  later runs hit (replays); probes count nothing, and no call routes a
+  window off the device.
+- ``prewarm`` captures a batch's stages without serving a window and
+  books the capture pass's seconds; the batch's next window is all hits.
 - ``configure_persistent_cache`` points the kernel and native build
   directories at one place, idempotently; ``"0"`` disables.
 - Tenants on one ruleset text share one engine (``SharedEngineFactory``).
@@ -52,7 +55,8 @@ def test_one_layout_one_signature_as_in_jax():
     hits0, misses0, _ = EXEC_CACHE.snapshot()
     vb = tb.evaluate(treqs)
     hits1, misses1, _ = EXEC_CACHE.snapshot()
-    assert misses1 == misses0 and hits1 > hits0
+    # Entries live on their model: tb's first window is its own first sight.
+    assert misses1 - misses0 == len(tb.batch_signature(treqs)) and hits1 == hits0
     assert [v.interrupted for v in va] == [v.interrupted for v in ja.evaluate(jreqs)] == [
         True, False, False]
     assert [v.interrupted for v in vb] == [v.interrupted for v in jb.evaluate(jreqs)] == [
@@ -65,42 +69,68 @@ def test_hits_misses_and_probes_count(monkeypatch):
     eng = TEngine(RULES_A, device="cpu")
     reqs = [TRequest(uri=u) for u in URIS]
     sig = eng.batch_signature(reqs)
-    h0, m0, s0 = EXEC_CACHE.snapshot()
+    n = len(sig)  # one matcher per tier, then the post stage
+    assert n >= 2
+    h0, m0, _ = EXEC_CACHE.snapshot()
+    c0, t0 = EXEC_CACHE.stats()["captures"], EXEC_CACHE.stats()["trace_s"]
     eng.evaluate(reqs)
-    h1, m1, s1 = EXEC_CACHE.snapshot()
-    # A window's first run at a new signature is a miss; nothing waited.
-    assert (h1 - h0, m1 - m0, s1) == (0, 1, s0)
-    assert EXEC_CACHE.stats()["entries"] == len(EXEC_CACHE) >= 1
-    assert eng.compiled.report.exec_signatures == 1
-    eng.evaluate(reqs)
+    h1, m1, _ = EXEC_CACHE.snapshot()
+    # A stage's first run at a new key is an eager miss; nothing captured.
+    assert (h1 - h0, m1 - m0) == (0, n)
+    assert EXEC_CACHE.stats()["captures"] == c0 and not EXEC_CACHE.resident(eng.model, sig)
+    assert eng.compiled.report.exec_signatures == n
+    eng.evaluate(reqs)  # the second sight captures each stage
     h2, m2, _ = EXEC_CACHE.snapshot()
-    assert (h2 - h1, m2 - m1) == (1, 0)
-    assert EXEC_CACHE.resident(sig)  # probes count nothing
-    assert EXEC_CACHE.snapshot()[:2] == (h2, m2)
+    assert (h2 - h1, m2 - m1) == (0, n)
+    stats = EXEC_CACHE.stats()
+    assert stats["captures"] - c0 == n and stats["trace_s"] > t0
+    assert stats["entries"] == len(EXEC_CACHE) >= n
+    eng.evaluate(reqs)  # then each replays
+    h3, m3, _ = EXEC_CACHE.snapshot()
+    assert (h3 - h2, m3 - m2) == (n, 0)
+    assert EXEC_CACHE.resident(eng.model, sig)  # probes count nothing
+    assert EXEC_CACHE.snapshot()[:2] == (h3, m3)
     assert not eng.prewarm(reqs)["compiled"]
     stats = EXEC_CACHE.stats()
-    assert (stats["bypasses"], stats["inflight"], stats["trace_s"]) == (0, 0, 0.0)
+    # No stage waited for the device from the host; the CPU instantiates nothing.
+    assert (stats["bypasses"], stats["inflight"], stats["compile_s"]) == (0, 0, 0.0)
 
 
 def test_prewarm_runs_a_window_per_new_signature_and_books_it(monkeypatch):
     monkeypatch.setenv("CKO_VALUE_CACHE_MB", "0")  # one signature per batch
-    cache = ExecutableCache()
-    assert cache.dispatch(("a",)) and not cache.dispatch(("a",))
-    cache.record_warm(("a",), 0.5)
-    cache.record_warm(("b",), 0.25)  # a signature the window itself did not run
-    assert cache.snapshot() == (1, 2, 0.75) and len(cache) == 2
+
+    class Owner:
+        pass
+
+    def double(owner, x):
+        return x * 2
+
+    cache, owner = ExecutableCache(), Owner()
+    x = torch.arange(4)
+    assert cache.warm(double, (owner, x), {}, {})
+    assert not cache.warm(double, (owner, x), {}, {})  # already captured
+    assert cache.stats()["captures"] == 1 and cache.snapshot()[:2] == (0, 1) and len(cache) == 1
+    assert torch.equal(cache.call(double, (owner, x + 1), {}, {}), (x + 1) * 2)
+    assert cache.snapshot()[:2] == (1, 1)
+    key = cache.key_for(double, (owner, x), {}, {})
     cache.clear()
-    assert len(cache) == 0 and not cache.resident(("a",))
+    assert len(cache) == 0 and not cache.resident(owner, [key])
 
     EXEC_CACHE.clear()
     eng = TEngine(RULES_B, device="cpu")
     reqs = [TRequest(uri=u) for u in URIS]
-    _h0, m0, s0 = EXEC_CACHE.snapshot()
+    sig = eng.batch_signature(reqs)
+    h0, m0, _ = EXEC_CACHE.snapshot()
+    t0 = EXEC_CACHE.stats()["trace_s"]
     first = eng.prewarm(reqs)
-    _h1, m1, s1 = EXEC_CACHE.snapshot()
-    assert first["compiled"] and first["wall_s"] >= s1 - s0 > 0 and m1 > m0
-    assert eng.warmed and EXEC_CACHE.resident(eng.batch_signature(reqs))
-    assert not eng.prewarm(reqs)["compiled"] and EXEC_CACHE.snapshot()[1:] == (m1, s1)
+    h1, m1, _ = EXEC_CACHE.snapshot()
+    t1 = EXEC_CACHE.stats()["trace_s"]
+    assert first["compiled"] and first["wall_s"] >= t1 - t0 > 0 and (h1, m1 - m0) == (h0, len(sig))
+    # Nothing was served: the engine is not warmed, but every stage is captured.
+    assert not eng.warmed and EXEC_CACHE.resident(eng.model, sig)
+    assert not eng.prewarm(reqs)["compiled"] and EXEC_CACHE.snapshot()[:2] == (h1, m1)
+    eng.evaluate(reqs)
+    assert EXEC_CACHE.snapshot()[:2] == (h1 + len(sig), m1) and eng.warmed
 
 
 def test_signature_keys_shapes_masks_and_layout():

@@ -17,7 +17,15 @@ limit rejecting) must give the CPU engine's verdicts. Four host threads
 launching all four kernels at rising shared-memory sizes (in a fresh
 process) must each get their plain version's bits, and every launch
 counter must count exactly; so must each kernel launched, on each card,
-from a thread whose current card was set to another one. Every test skips
+from a thread whose current card was set to another one. The stage
+graphs (``engine/compile_cache.py``): crs-lite's matcher and post stages
+replay the eager bits and launch counts at the three main-path shapes,
+finals off and on; a capture runs while another thread serves windows; a
+stage that cannot be captured is a bypass and leaves the card serving
+right; windows prepared by two lanes on one engine and collected by
+two more threads keep their bits while another thread captures;
+``reinit_device`` releases the old
+model's graphs. Every test skips
 where there is no card. This file imports no
 JAX, so it also runs on the card's machine, without the JAX package's
 conftest::
@@ -491,3 +499,244 @@ def test_abi_typed_launchers_equal_plain(card):
     finals = kernels._FUNCS["cko_finals_match"]
     with pytest.raises(ctypes.ArgumentError):
         finals(*[ctypes.c_int(0)] * len(finals.argtypes))  # an int where a pointer goes
+
+
+# -- stage graphs (engine/compile_cache.py) -----------------------------------
+
+@pytest.fixture(scope="module")
+def crs_lite():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from coraza_kubernetes_operator_tpu_torch.ftw.corpus import load_ruleset_text
+
+    return WafEngine(load_ruleset_text())
+
+
+_LAUNCH_MODS = (dfa, dfa_gather, dfa_flat, segment_finals)
+
+
+def _counted(fn):
+    """(fn(), launches it booked per counter)."""
+    before = [m.LAUNCHES for m in _LAUNCH_MODS]
+    out = fn()
+    return out, [m.LAUNCHES - b for m, b in zip(_LAUNCH_MODS, before)]
+
+
+def _stage_inputs(card, eng, b, length, seed):
+    """A matcher tier's arguments and the post stage's pairs and numvals
+    for ``b`` seeded rows of width ``length``."""
+    rng = np.random.default_rng(seed)
+    data, lens = _rows(b, length, seed)
+    h = max(1, len(eng._rows.host_pipelines))
+    vd = np.broadcast_to(data, (h, b, length)).copy()
+    vl = np.broadcast_to(np.minimum(lens, length), (h, b)).copy()
+    n_req, n_kinds = 1024, eng.compiled.vocab.n_kinds
+    kinds = [rng.integers(0, n_kinds + 1, b).astype(np.int32) for _ in range(3)]
+    rid = rng.integers(0, n_req + 1, b).astype(np.int32)
+    uid = rng.integers(0, b, b).astype(np.int32)
+    numvals = np.zeros((n_req, eng.compiled.numvars.n_vars), dtype=np.int32)
+    return ((eng.model, *_on(card, data, lens, vd, vl)), tuple(_on(card, *kinds, rid, uid)),
+            _on(card, numvals)[0])
+
+
+@pytest.mark.parametrize("finals", ["0", "1"], ids=["finals-off", "finals-on"])
+@pytest.mark.parametrize("b,length", SHAPES[:3], ids=SHAPE_IDS[:3])
+def test_stage_graphs_replay_the_eager_bits(card, crs_lite, monkeypatch, b, length, finals):
+    """crs-lite's matcher and post stages through a stage cache: the eager
+    first sight, the capture (served by its side-stream run) and a replay
+    each give the eager call's bits on the same inputs and book the same
+    kernel launches."""
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import ExecutableCache
+    from coraza_kubernetes_operator_tpu_torch.models.waf_model import (
+        eval_post_tiered,
+        match_tier_packed,
+    )
+
+    monkeypatch.setenv("CKO_PALLAS_FINALS", finals)
+    cache = ExecutableCache()
+    for seed in (1, 2, 3):
+        args, pairs, numvals = _stage_inputs(card, crs_lite, b, length, seed)
+        got, n_got = _counted(lambda: cache.call(match_tier_packed, args, {"mask": None}, {}))
+        want, n_want = _counted(lambda: match_tier_packed(*args, mask=None))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and n_got == n_want, (seed, n_got, n_want)
+        assert n_want[0] + n_want[1] + n_want[2] > 0 and (n_want[3] > 0) == (finals == "1")
+        post = (crs_lite.model, (want,), (pairs,), numvals)
+        got = cache.call(eval_post_tiered, post, {"max_phase": 2}, {"cached": None})
+        want = eval_post_tiered(*post, max_phase=2, cached=None)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), seed
+    stats = cache.stats()
+    assert (stats["captures"], stats["hits"], stats["bypasses"]) == (2, 2, 0), stats
+    assert stats["compile_s"] > 0 and stats["trace_s"] > 0
+
+
+def test_capture_while_another_thread_serves_windows(card):
+    """One thread captures a model's stage graphs (prewarm) while another
+    serves windows of another engine through its own graphs: every window
+    equals the CPU engine's, and the captured graphs replay right after."""
+    import threading
+
+    reqs = [HttpRequest(method=m, uri=u, headers=h, body=b) for m, u, h, b in REQUESTS]
+    want = [(v.interrupted, v.status, v.rule_id, v.matched_ids, v.scores)
+            for v in WafEngine(SMALL_RULES, device="cpu").evaluate(reqs)]
+    server, warmer = WafEngine(SMALL_RULES), WafEngine(REJECT_RULES)
+    server.evaluate(reqs)
+    got, errors, stop = [], [], threading.Event()
+
+    def serve():
+        try:
+            while not stop.is_set() or len(got) < 6:
+                got.append([(v.interrupted, v.status, v.rule_id, v.matched_ids, v.scores)
+                            for v in server.evaluate(reqs)])
+        except BaseException as err:
+            errors.append(err)
+
+    th = threading.Thread(target=serve)
+    th.start()
+    try:
+        for n in (1, 4, 16):  # three signatures, each one eager run and one capture per stage
+            assert warmer.prewarm(reqs[:n])["compiled"]
+    finally:
+        stop.set()
+        th.join(timeout=600)
+    assert not th.is_alive() and not errors, errors
+    assert got and all(g == want for g in got)
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    assert EXEC_CACHE.resident(warmer.model, warmer.batch_signature(reqs[:16]))
+    on_cpu = WafEngine(REJECT_RULES, device="cpu").evaluate(reqs[:16])
+    assert [(v.interrupted, v.status, v.rule_id) for v in warmer.evaluate(reqs[:16])] == [
+        (v.interrupted, v.status, v.rule_id) for v in on_cpu]
+
+
+def test_pipelined_windows_beside_captures_keep_their_bits(card, crs_lite):
+    """The sidecar's shape of concurrency: two lanes each prepare windows
+    on one engine (their stages run eager, captured or replayed, the value
+    cache on, so the model's graphs replay from both threads at once) while
+    a collector per lane reads them back, two in flight, and another
+    thread captures a second model's graphs meanwhile. Every window
+    equals the card's eager verdicts on the same requests."""
+    import queue
+    import threading
+
+    from coraza_kubernetes_operator_tpu_torch.corpus import synthetic_requests
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    def vkey(v):
+        return (v.interrupted, v.status, v.rule_id, v.matched_ids, v.scores)
+
+    windows = [synthetic_requests(128, attack_ratio=0.3, seed=500 + i) for i in range(6)]
+    ref = WafEngine(crs_lite.compiled)
+    ref.value_cache = None
+    EXEC_CACHE.call = lambda fn, args, statics, dyn: fn(*args, **statics, **dyn)
+    try:
+        want = [[vkey(v) for v in ref.evaluate(w)] for w in windows]
+    finally:
+        del EXEC_CACHE.call
+    server = WafEngine(crs_lite.compiled)
+    orders = [[i for _ in range(4) for i in range(len(windows))],
+              [i for _ in range(4) for i in reversed(range(len(windows)))]]
+    got, errors = [], []
+
+    def lane(order):
+        inflight = queue.Queue(maxsize=2)
+
+        def prepare():
+            try:
+                for i in order:
+                    inflight.put((i, server.prepare(windows[i])))
+            except BaseException as err:
+                errors.append(err)
+            finally:
+                inflight.put(None)
+
+        def collect():
+            try:
+                while (item := inflight.get()) is not None:
+                    i, batch = item
+                    got.append((i, [vkey(v) for v in server.collect(batch)]))
+            except BaseException as err:
+                errors.append(err)
+
+        return [threading.Thread(target=prepare), threading.Thread(target=collect)]
+
+    threads = [th for order in orders for th in lane(order)]
+    h0 = EXEC_CACHE.snapshot()[0]
+    for th in threads:
+        th.start()
+    for n in (64, 256, 1024):  # captures on another model, meanwhile
+        crs_lite.prewarm(synthetic_requests(n, attack_ratio=0.3, seed=n))
+    for th in threads:
+        th.join(timeout=900)
+    assert not any(th.is_alive() for th in threads) and not errors, errors
+    assert len(got) == sum(map(len, orders)) and EXEC_CACHE.snapshot()[0] > h0
+    bad = [i for i, v in got if v != want[i]]
+    assert not bad, f"windows {bad} differ from the eager verdicts"
+
+
+def test_a_stage_that_cannot_be_captured_is_a_bypass_and_the_next_window_is_right(card):
+    """A stage that notes a host sync stays eager; one that reads a value
+    back unnoted fails its capture, which ends cleanly: both are counted
+    as bypasses with their bits right, and an engine window after them
+    equals the CPU engine's."""
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import ExecutableCache
+    from coraza_kubernetes_operator_tpu_torch.ops import kernels
+
+    class Owner:
+        pass
+
+    def noted(owner, x):
+        kernels.note_host_sync("reads a count back")
+        return x + int(x.sum().item() > -1)
+
+    def unnoted(owner, x):
+        return x * 2 + int(x.max().item() >= 0)
+
+    cache, owner = ExecutableCache(), Owner()
+    x = torch.arange(1024, device=card)
+    for fn, want in ((noted, x + 1), (unnoted, x * 2 + 1)):
+        for _ in range(3):
+            assert torch.equal(cache.call(fn, (owner, x), {}, {}), want)
+    stats = cache.stats()
+    assert (stats["captures"], stats["hits"], stats["bypasses"]) == (0, 0, 4), stats
+    reasons = [r for _k, r in cache.bypassed()]
+    assert reasons[0] == "reads a count back" and reasons[1].startswith("capture failed"), reasons
+    torch.cuda.synchronize()
+    reqs = [HttpRequest(method=m, uri=u, headers=h, body=b) for m, u, h, b in REQUESTS]
+    eng = WafEngine(SMALL_RULES)
+    for _ in range(3):  # eager, captured, replayed
+        got = [(v.interrupted, v.status, v.rule_id) for v in eng.evaluate(reqs)]
+    on_cpu = WafEngine(SMALL_RULES, device="cpu").evaluate(reqs)
+    assert got == [(v.interrupted, v.status, v.rule_id) for v in on_cpu]
+
+
+def test_reinit_device_releases_the_graphs(card, monkeypatch):
+    """After ``reinit_device`` the old model's graphs and their pool are
+    gone, and the rebuilt model's windows are right."""
+    import gc
+
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    monkeypatch.setenv("CKO_VALUE_CACHE_MB", "0")  # one signature for every window
+    reqs = [HttpRequest(method=m, uri=u, headers=h, body=b) for m, u, h, b in REQUESTS]
+    eng = WafEngine(SMALL_RULES)
+    for _ in range(2):
+        eng.evaluate(reqs)
+    sig = eng.batch_signature(reqs)
+    old = eng.model
+    assert EXEC_CACHE.resident(old, sig)
+    gc.collect()  # earlier tests' engines, so that only this one's graphs go below
+    graphs, pool = len(EXEC_CACHE), EXEC_CACHE.pool_bytes()
+    assert pool > 0
+    eng.reinit_device()
+    assert not EXEC_CACHE.resident(old, sig)
+    del old
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert len(EXEC_CACHE) == graphs - len(sig) and EXEC_CACHE.pool_bytes() < pool
+    want = [(v.interrupted, v.status, v.rule_id)
+            for v in WafEngine(SMALL_RULES, device="cpu").evaluate(reqs)]
+    for _ in range(3):
+        assert [(v.interrupted, v.status, v.rule_id) for v in eng.evaluate(reqs)] == want

@@ -10,8 +10,9 @@ On the CPU, against the JAX package:
 - ``evaluate_phased``, ``evaluate_response`` and ``evaluate_bulk_json``
   give the JAX engine's verdicts (the JAX package's bulk path loads the
   library the port built from the same source);
-- ``prewarm`` records shape signatures (``EXEC_CACHE``), and
-  ``reinit_device`` rebuilds the model without changing a verdict.
+- ``prewarm`` captures a batch's stage graphs (``EXEC_CACHE``) without
+  serving it, and ``reinit_device`` rebuilds the model, dropping the old
+  one's graphs, without changing a verdict.
 """
 
 import json
@@ -164,13 +165,14 @@ def test_prewarm_records_signatures_and_reinit_keeps_verdicts(monkeypatch):
     reqs = _requests(TRequest, tcorpus, n=8)
     assert not teng.warmed
     first = teng.prewarm()
-    assert first["compiled"] and first["wall_s"] > 0 and teng.warmed
+    assert first["compiled"] and first["wall_s"] > 0 and not teng.warmed  # nothing served
     assert not teng.prewarm()["compiled"]
     sig = teng.batch_signature(reqs)
-    assert not EXEC_CACHE.resident(sig)
-    assert teng.prewarm(reqs)["compiled"] and EXEC_CACHE.resident(sig)
+    assert not EXEC_CACHE.resident(teng.model, sig)
+    assert teng.prewarm(reqs)["compiled"] and EXEC_CACHE.resident(teng.model, sig)
     want = keys(teng.evaluate(reqs))
     old = teng.model
     teng.reinit_device()
     assert teng.model is not old and not teng.warmed
+    assert not EXEC_CACHE.resident(old, sig)  # the old model's graphs went with it
     assert keys(teng.evaluate(reqs)) == want and teng.warmed

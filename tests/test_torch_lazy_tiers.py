@@ -101,12 +101,15 @@ def test_first_window_at_new_shapes_is_a_miss_on_the_device(monkeypatch, jax_ver
     EXEC_CACHE.clear()
     eng = TEngine(RULES, device="cpu")
     reqs = _requests(TRequest)
+    n = len(eng.batch_signature(reqs))  # stages: one matcher per tier, then post
     h0, m0, _ = EXEC_CACHE.snapshot()
     assert [_vt(v) for v in eng.evaluate(reqs)] == jax_verdicts[0]
     h1, m1, _ = EXEC_CACHE.snapshot()
-    assert (h1 - h0, m1 - m0) == (0, 1)
-    assert [_vt(v) for v in eng.evaluate(reqs)] == jax_verdicts[0]
-    assert EXEC_CACHE.snapshot()[:2] == (h1 + 1, m1)
+    assert (h1 - h0, m1 - m0) == (0, n)
+    assert [_vt(v) for v in eng.evaluate(reqs)] == jax_verdicts[0]  # captures
+    assert EXEC_CACHE.snapshot()[:2] == (h1, m1 + n)
+    assert [_vt(v) for v in eng.evaluate(reqs)] == jax_verdicts[0]  # replays
+    assert EXEC_CACHE.snapshot()[:2] == (h1 + n, m1 + n)
     assert calls == {"tier": 0, "post": 0}
 
 

@@ -13,7 +13,8 @@ The same request bytes go to both, and every answer must be byte-equal in
 - the quarantine poison marker (real verdict, then isolated);
 - an injected device loss (host fallback answers, then ``promoted``);
 - readyz/healthz, and the metric family names (``cko_build_info``'s
-  labels differ by design);
+  labels differ by design); the port's ``cko_compile_cache_*`` gauges and
+  its stats' ``trace_s`` read its stage graphs (``EXEC_CACHE``);
 - state carried across: a ``StateStore`` snapshot the JAX sidecar wrote
   restores the port's sidecar with the same uuid, ring and latches, and
   equal verdicts, before any cache poll.
@@ -172,6 +173,33 @@ def test_metric_family_names_equal(pair):
     info = [ln for ln in td.splitlines() if ln.startswith("cko_build_info{")]
     assert len(info) == 1 and 'platform="cpu"' in info[0] and "torch=" in info[0]
     assert "cuda=" in info[0]
+
+
+def test_compile_cache_gauges_report_the_stage_graphs(pair):
+    """``cko_compile_cache_*`` and ``/waf/v1/stats`` read ``EXEC_CACHE``:
+    hits (replays), misses, resident graphs and bypasses on the metrics
+    page, the capture passes' seconds (trace_s) in the stats, as the
+    reference reports them."""
+    import gc
+
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
+
+    gc.collect()  # earlier tests' dead engines would drop their graphs mid-read
+    for i in range(4):  # distinct values: each rides a device window
+        pair.send("GET", f"/?q=gauge-probe-{i}")
+    data = _send(pair.t.port, "GET", "/waf/v1/metrics")[3].decode()
+    got = {ln.split()[0]: float(ln.split()[1]) for ln in data.splitlines()
+           if ln.startswith("cko_compile") and "{" not in ln}
+    stats = EXEC_CACHE.stats()
+    assert stats["misses"] > 0
+    assert got["cko_compile_cache_hits_total"] == stats["hits"]
+    assert got["cko_compile_cache_misses_total"] == stats["misses"]
+    assert got["cko_compile_cache_bypass_total"] == stats["bypasses"]
+    assert got["cko_compile_cache_entries"] == stats["entries"] == len(EXEC_CACHE)
+    assert got["cko_compile_inflight"] == stats["inflight"] == 0
+    block = json.loads(_send(pair.t.port, "GET", "/waf/v1/stats")[3])["compile_cache"]
+    assert {k: block[k] for k in ("trace_s", "bypasses", "captures")} == {
+        k: stats[k] for k in ("trace_s", "bypasses", "captures")}
 
 
 def test_verdict_cache_hits_on_repeat_and_empties_on_swap(pair):
