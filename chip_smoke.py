@@ -15,14 +15,17 @@ failure exits non-zero; no phase is caught):
    one fused launch, all prefilter banks in one fused launch over
    ``model.pre_tier``), the finals kernel on every
    crs-lite segment block with finals columns, its operands taken from the
-   block's own chain program (``ops/segment.py::finals_inputs``). Each
-   kernel's output must be bit-equal to its plain version's on the card.
-   Times come from CUDA events after warm-up around the wrappers' calls;
+   block's own chain program (``ops/segment.py::finals_inputs``), and the
+   chain kernel on every crs-lite segment block, its operands (the block's
+   conv output, rows and lengths) from ``ops/segment.py::chain_inputs``,
+   with the finals tier off (timed) and on. Each kernel's output must be
+   bit-equal to its plain version's on the card. Times come from CUDA
+   events after warm-up around the wrappers' calls;
 3. the slice-1 path: ``WafEngine(crs-lite).evaluate`` on a 4096-request
    window on the card (Python tensorize path, finals tier off; each stage's
    first sight, so eager), verdicts identical to the same engine on the
    CPU, at least one request blocked, every scan kernel's launch count
-   non-zero. Then the stage graphs (``engine/compile_cache.py``), with the
+   non-zero, and the chain kernel's too. Then the stage graphs (``engine/compile_cache.py``), with the
    engine's value cache off so a window and its twin do the same work:
    the same window's stages captured (``prewarm``) and replayed, verdicts
    identical to the CPU engine's; then fresh windows, each prewarmed
@@ -36,7 +39,7 @@ failure exits non-zero; no phase is caught):
    stage may bypass its graph;
 4. the slice-2 path: the same 4096 requests as one blob through
    ``prepare_blob`` + ``collect`` on the native tiered path with
-   ``CKO_PALLAS_FINALS=1``: verdicts equal to phase 3's, all four kernels
+   ``CKO_PALLAS_FINALS=1``: verdicts equal to phase 3's, all five kernels
    launched, at most one fused gather launch and one fused dense launch
    per tier; the same blob captured and replayed, verdicts equal; then
    eager/graph pairs as in phase 3 with the finals tier on and off; then
@@ -59,7 +62,7 @@ failure exits non-zero; no phase is caught):
    overridden: a 100 ms batch delay, since a window costs about the same
    host time whatever its size and at 1 ms the 4096 would take minutes,
    and an ext_proc listener), serves all 4096; the three scan kernels
-   must launch. Every answer (status, x-waf-action, x-waf-rule-id, body)
+   and the chain kernel must launch. Every answer (status, x-waf-action, x-waf-rule-id, body)
    must equal a CPU sidecar's on the threaded frontend; again with
    ``CKO_PALLAS_FINALS=1`` (the finals kernel must launch); then 512 of
    the requests through the ext_proc listener (64 ``ExtProcClient``
@@ -83,7 +86,7 @@ failure exits non-zero; no phase is caught):
    through ``evaluate_response``: exactly the JAX package's result on
    this tree (``CRS_LITE_FAILED``: 314 passed, ``["920160-1"]`` ignored,
    the same 11 failed with the same reasons, no skipped file), the three
-   scan kernels launched; (b) the same window with
+   scan kernels and the chain kernel launched; (b) the same window with
    ``CKO_PALLAS_FINALS=1``: every stage verdict equal to (a)'s, the finals
    kernel launched; (c) the mini corpus (``ftw/tests``) over HTTP against
    a sidecar on the card serving ``base.conf`` + ``crs-mini.conf`` from
@@ -94,7 +97,7 @@ failure exits non-zero; no phase is caught):
 8. the sharded engine (``sharded_phase``): a one-rank NCCL process group,
    ``make_mesh(1, 1)``, ``ShardedWafEngine`` on crs-lite: phase 3's 4096
    requests give phase 3's verdicts (interrupted, status, rule id) and
-   launch ``cko_scan_dense``; the device memory the rank's engine holds,
+   launch ``cko_scan_dense`` and ``cko_chain_match``; the device memory the rank's engine holds,
    beside that of ``build_model``'s single-device model; then the p50 of 3
    fresh windows beside phase 3's p50, the finals tier off in both; the
    process group is destroyed
@@ -105,7 +108,9 @@ failure exits non-zero; no phase is caught):
    ``torch.profiler`` pass each (kernel events by name); then one
    profiled finals-on blob window, eager (launches, device busy time, and
    no [T, Q, Gf] stack of per-group rows) and the same window replayed;
-   and one phase-3 window eager and replayed. The smoke's total seconds
+   and one phase-3 window eager and replayed; each profiled window logs
+   its kernel launches, device busy ms, each hand kernel's launches and
+   ms, and the stage graphs' pool bytes. The smoke's total seconds
    close the log.
 
 Phases run in the order 0-4, 6, 7, 8, 5. The last lines are the kernel
@@ -145,6 +150,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
 SHAPES = ((12288, 64), (1024, 2048), (4096, 64))  # main-path tiers, then B = 4096
 SEED = 20261016
+CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 peak outside the tensor cores (NVIDIA data sheet)
+# Profiler event names of the hand kernels (a substring of each kernel's name).
+HAND_KERNELS = ("finals_kernel", "gather_tier_kernel", "dense_tier_kernel", "flat_kernel", "chain_kernel")
 
 
 # The go-ftw result the JAX package gives on the repo's crs-lite corpus
@@ -340,7 +348,7 @@ def profiled_window(engine, submit, eager: bool):
     n_launch = sum(e.count for e in kernel_events)
     mine = {name: (sum(e.count for e in kernel_events if name in e.key),
                    sum(e.self_device_time_total for e in kernel_events if name in e.key) / 1e3)
-            for name in ("finals_kernel", "gather_tier_kernel", "dense_tier_kernel", "flat_kernel")}
+            for name in HAND_KERNELS}
     return wall_ms, device_ms, n_launch, mine, events
 
 
@@ -604,7 +612,7 @@ def sidecar_phase(card, reqs, verdicts, cpu_eng, mods, table, cache, srv) -> Non
     from coraza_kubernetes_operator_tpu_torch.sidecar.batcher import LANE_BULK
 
     key, token = "default/crs-lite", "chip-smoke"
-    scans = ("cko_scan_flat", "cko_scan_gather", "cko_scan_dense")
+    scans = ("cko_scan_flat", "cko_scan_gather", "cko_scan_dense", "cko_chain_match")
     os.environ["CKO_VERDICT_CACHE_MAX"] = "0"  # every request rides a device window
     os.environ["CKO_PALLAS_FINALS"] = "0"
     # The JAX package's tpu-engine sets this by default (it answers stages
@@ -1006,8 +1014,9 @@ def conformance_phase(card, compiled, mods, table, cache, srv) -> None:
                          f"the reference's: {sorted(set(result.failed.items()) ^ set(CRS_LITE_FAILED.items()))}")
     if len(result.passed) != 326 - 1 - len(CRS_LITE_FAILED) or sorted(result.ignored) != ["920160-1"]:
         raise SystemExit(f"phase 7a: {len(result.passed)} passed, ignored {sorted(result.ignored)}")
-    if not all(launched[k] for k in ("cko_scan_flat", "cko_scan_gather", "cko_scan_dense")):
-        raise SystemExit(f"phase 7a: a scan kernel did not launch: {launched}")
+    if not all(launched[k] for k in ("cko_scan_flat", "cko_scan_gather", "cko_scan_dense",
+                                     "cko_chain_match")):
+        raise SystemExit(f"phase 7a: a scan kernel or the chain kernel did not launch: {launched}")
     for k, n in launched.items():
         table[k]["ftw_launches"] = n
 
@@ -1130,9 +1139,10 @@ def sharded_phase(card, compiled, reqs, verdicts, p50_phase3, mods, table, n_win
         if diff or len(got) != len(want):
             raise SystemExit(f"phase 8: {len(diff)} sharded verdicts differ from phase 3's, "
                              f"first {diff[:5]}")
-        if not launched["cko_scan_dense"]:
-            raise SystemExit(f"phase 8: cko_scan_dense did not launch: {launched}")
-        table["cko_scan_dense"]["sharded_launches"] = launched["cko_scan_dense"]
+        for k in ("cko_scan_dense", "cko_chain_match"):
+            if not launched[k]:
+                raise SystemExit(f"phase 8: {k} did not launch: {launched}")
+            table[k]["sharded_launches"] = launched[k]
         walls = []
         for w in range(n_windows):
             window = synthetic_requests(4096, attack_ratio=0.3, seed=100 + w)
@@ -1179,7 +1189,7 @@ def main() -> int:
     from coraza_kubernetes_operator_tpu_torch.engine.request import HttpRequest, HttpResponse
     from coraza_kubernetes_operator_tpu_torch.ftw.corpus import load_ruleset_text
     from coraza_kubernetes_operator_tpu_torch.ops import (
-        dfa, dfa_flat, dfa_gather, kernels, segment, segment_finals,
+        dfa, dfa_flat, dfa_gather, kernels, segment, segment_chain, segment_finals,
     )
 
     # -- phase 0: the card ---------------------------------------------------
@@ -1401,17 +1411,89 @@ def main() -> int:
         del cases
         torch.cuda.empty_cache()
 
+    # The chain kernel: every crs-lite segment block, its operands from the
+    # block's own conv on seeded rows (segment.chain_inputs).
+    def chain_cases(b, length, rng, tier=False):
+        """Per block: (kernel call, plain call, bytes needed, operations,
+        finals tier on: the block has finals columns and ``tier``)."""
+        cases = []
+        for blk in model.segs:
+            d, l = random_rows(rng, b, length)
+            ins = segment.chain_inputs(blk.kernel, blk.spec, torch.as_tensor(d, device=dev),
+                                       torch.as_tensor(l, device=dev), consts=blk.consts, finals_tier=tier)
+            if ins is None:
+                continue
+            conv, d_, l_, tables, off, t_on = ins
+            q = length + 2
+            # Bytes the function needs: the conv output at positions p <=
+            # len + 1 of each row (no chain reads a later one), the rows,
+            # lengths and tables once, and the outputs once.
+            live = int(np.minimum(l.astype(np.int64) + 2, q).sum()) * conv.shape[1]
+            outs = b * (tables.n_bucket_cols + (0 if t_on else tables.nf)) + (b * q * tables.ns if t_on else 0)
+            nbytes = 2 * live + d.nbytes + l.nbytes + sum(v.nbytes for v in tables.host.values()) + outs
+            # Operations: a compare, shift and OR per conv element, and a few
+            # (8) per position of each class-gap walk of each item.
+            h = tables.host
+            walks = sum(int(u[3]) * int((h["ops"][u[4] : u[4] + u[5], 0] == segment_chain.OP_GAPCLS).sum())
+                        for u in h["units"])
+            ops = 3 * live + 8 * b * q * walks
+            operands = (conv, d_, l_, tables)
+            cases.append((
+                lambda a=operands, o=off, t=t_on: segment_chain.chain_match(*a, off=o, tier=t),
+                lambda a=operands, o=off, t=t_on: segment_chain.chain_match_plain(*a, off=o, tier=t),
+                nbytes, ops, t_on,
+            ))
+        return cases
+
+    for b, length in SHAPES:
+        for tier in (False, True):
+            cases = chain_cases(b, length, rng, tier)
+            n0 = segment_chain.LAUNCHES
+            for kern, plain, _nb, _ops, t_on in cases:
+                (bh, sfx), (want, want_sfx) = kern(), plain()
+                torch.cuda.synchronize()
+                if not torch.equal(bh, want) or (t_on and not torch.equal(sfx, want_sfx)):
+                    raise SystemExit(f"cko_chain_match B={b} L={length} finals tier {tier}: "
+                                     f"{int((bh != want).sum())} hit bits differ from the plain version")
+            per_call = segment_chain.LAUNCHES - n0
+            reps = 10 if length <= 64 else 3
+            ms = cuda_ms(lambda: [c[0]() for c in cases], reps)
+            plain_ms = cuda_ms(lambda: [c[1]() for c in cases], 2)
+            nbytes, ops = sum(c[2] for c in cases), sum(c[3] for c in cases)
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
+            bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+            log(f"phase 2: cko_chain_match B={b} L={length} finals tier {'on' if tier else 'off'} "
+                f"blocks={len(cases)} launches={per_call}: bit-equal; ms={ms:.4f} "
+                f"({ms / per_call:.4f} per launch) plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} "
+                f"({bound_by}: {nbytes} B, {ops} operations) [{card}]")
+            if not tier:
+                deferred.append(("cko_chain_match", b, length, lambda b=b, length=length:
+                                 chain_cases(b, length, np.random.default_rng(SEED)), "chain_kernel", reps))
+            if (b, length) == SHAPES[0] and not tier:
+                table["cko_chain_match"] = {
+                    "name": "cko_chain_match", "route": "cuda",
+                    "source": f"{PKG}/csrc/segment_chain.cu",
+                    "replaces": "coraza_kubernetes_operator_tpu/ops/segment.py:687",  # XLA-fused, no pallas_call
+                    "launches": 0, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                    "launches_per_call": per_call, "device_ms_per_launch": None,
+                }
+            del cases
+            torch.cuda.empty_cache()
+
     # -- phase 3: the slice-1 path ---------------------------------------------
     reqs = synthetic_requests(4096, attack_ratio=0.3, seed=1)
-    mods = {**{k: mod for k, _s, mod, *_ in kernel_defs}, "cko_finals_match": segment_finals}
+    mods = {**{k: mod for k, _s, mod, *_ in kernel_defs}, "cko_finals_match": segment_finals,
+            "cko_chain_match": segment_chain}
+    p3_mods = {k: mod for k, mod in mods.items() if k != "cko_finals_match"}  # the tier is off
     n_pairs = max(1, args.windows // 2)
-    for _k, _s, mod, *_ in kernel_defs:
+    for mod in p3_mods.values():
         mod.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     verdicts = eng.evaluate(reqs)
     first_s = time.perf_counter() - t0
-    launches = {k: mod.LAUNCHES for k, _s, mod, *_ in kernel_defs}
+    launches = {k: mod.LAUNCHES for k, mod in p3_mods.items()}
     log(f"phase 3: first window {first_s * 1e3:.1f} ms; kernel launches {launches}")
     if not all(launches.values()):
         raise SystemExit(f"a kernel of the slice-1 path was not launched: {launches}")
@@ -1596,7 +1678,7 @@ def main() -> int:
         cases = build()
         dev_ms, seen = device_ms_per_launch(lambda: [c[0]() for c in cases], dev_name, reps)
         log(f"phase 5: {kname} B={b} L={length}: device_ms_per_launch={dev_ms} ({seen} "
-            f"{dev_name} events over {reps} reps of {len(cases)} launches) [{card}]")
+            f"{dev_name} events over {reps} reps of {len(cases)} calls) [{card}]")
         if (b, length) == SHAPES[0]:
             table[kname]["device_ms_per_launch"] = dev_ms
         del cases
@@ -1622,7 +1704,8 @@ def main() -> int:
     log(f"phase 4: profiled blob window (finals on, eager): {wall_ms:.1f} ms wall (profiler on), "
         f"device busy {device_ms:.3f} ms ({device_ms / wall_ms:.1%}) in "
         f"{n_launch} kernel launches; (launches, device ms) {mine}; [T, Q, Gf] stacks of "
-        f"group rows (Gf in {sorted(gfs)}, Q in {sorted(qs)}): {stacks} [{card}]")
+        f"group rows (Gf in {sorted(gfs)}, Q in {sorted(qs)}): {stacks}; resident graphs "
+        f"{len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes()} B [{card}]")
     if stacks:
         raise SystemExit(f"the finals-on window built {stacks} [T, Q, Gf] stacks")
     report = events.table(sort_by="self_cuda_time_total", row_limit=40)
@@ -1633,11 +1716,11 @@ def main() -> int:
     g = profiled_window(eng4, lambda: eng4.prepare_blob(blob, len(window)), eager=False)
     log(f"phase 4: profiled blob window (finals on, graph): {g[0]:.1f} ms wall (profiler on), "
         f"device busy {g[1]:.3f} ms ({g[1] / g[0]:.1%}) in {g[2]} kernel launches; (launches, "
-        f"device ms) {g[3]} [{card}]")
+        f"device ms) {g[3]}; resident graphs {len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes()} B "
+        f"[{card}]")
     graph_report = g[4].table(sort_by="self_cuda_time_total", row_limit=40)
     log("\n".join(graph_report.splitlines()[:25]))
-    if not all(g[3][k][0] for k in ("finals_kernel", "gather_tier_kernel", "dense_tier_kernel",
-                                    "flat_kernel")):
+    if not all(g[3][k][0] for k in HAND_KERNELS):
         log(f"phase 4: the profiler does not name every hand kernel inside the replayed graphs: {g[3]}")
     os.environ["CKO_PALLAS_FINALS"] = "0"
     window3 = synthetic_requests(4096, attack_ratio=0.3, seed=998)
@@ -1647,7 +1730,7 @@ def main() -> int:
                                                       eager=mode == "eager")
         log(f"phase 3: profiled window ({mode}): {w_ms:.1f} ms wall (profiler on), device busy "
             f"{d_ms:.3f} ms ({d_ms / w_ms:.1%}) in {n_l} kernel launches; (launches, device ms) "
-            f"{mine3} [{card}]")
+            f"{mine3}; resident graphs {len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes()} B [{card}]")
     os.environ["CKO_PALLAS_FINALS"] = "1"
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)

@@ -87,6 +87,17 @@ _ABI: dict = {
         ],
         "ret": "int",
     },
+    "cko_chain_match": {
+        # conv, data, lens, units, ucum, ops, cls, fin, T, L, Q, ncol, off,
+        # W, U, M, NS, NF, nbc, ldo, finals, G, bits, packed, sfx, bh, stream.
+        "args": [
+            "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr",
+            "int", "int", "int", "int", "int", "int", "int", "int", "int", "int", "int", "int",
+            "int", "int",
+            "ptr", "ptr", "ptr", "ptr", "ptr",
+        ],
+        "ret": "int",
+    },
     # Defined in each source: the text of a launcher's error code.
     "cko_error_string": {"args": ["int"], "ret": "charp"},
 }

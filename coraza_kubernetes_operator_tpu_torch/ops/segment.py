@@ -3,15 +3,18 @@ ONE convolution, then gap-chaining as bitmap algebra.
 
 Port of ``coraza_kubernetes_operator_tpu/ops/segment.py``.
 
-1. **embed**: bytes → ``[T, C, Lp]`` channel planes from comparisons
-   (nibble one-hots, class-interval tests, a constant ones plane).
+1. **embed**: bytes → ``[T, C, Lp]`` channel planes (nibble one-hots,
+   class-interval tests, a constant ones plane), one lookup of each byte
+   in the block's ``[C, 256]`` plane table.
 2. **conv**: one ``conv1d`` with kernel ``[W, C, N]`` (the reference's
    channels-last ``[W, C, N]`` layout, permuted to torch's ``[N, C, W]``
    at the call). Each segment position contributes exactly 2 when its
    byte matches, so ``out == 2W`` ⇔ the segment matches at that window
    start.
-3. **chain**: gap constraints as bitmap algebra on ``[T, Q, ·]`` blocks,
-   suffix-deduped exactly as the reference lays them out.
+3. **chain**: gap constraints as bitmap algebra over the window starts,
+   suffix-deduped exactly as the reference lays them out
+   (``ops/segment_chain.py``: the kernel ``cko_chain_match`` on the card,
+   its plain version on the CPU).
 4. **finals tier** (``CKO_PALLAS_FINALS=1``, off by default): the finals
    columns skip the conv and the ``[T, Q, N]`` bitmap; the CUDA kernel of
    ``ops/segment_finals.py`` scores them where their group is reachable.
@@ -38,13 +41,9 @@ import torch.nn.functional as F
 from ..compiler.re_parser import ALL_BYTES
 from ..compiler.segments import Seg, SegmentPlan
 from ..utils.device import resolve_device
-from .segment_finals import finals_match, finals_tables, group_reach
-from .segment_finals import shift as _shift
-
-# Above this Q the NCE prefix sum uses cumsum instead of a [Q, Q]
-# triangular matmul — the table is O(Q²) and on long-body buckets (up to
-# SecRequestBodyLimit) would be a request-triggerable multi-GB allocation.
-_NCE_MATMUL_MAX_Q = 512
+from .segment_chain import _NCE_MATMUL_MAX_Q  # noqa: F401 (callers read the NCE bound here)
+from .segment_chain import ChainTables, chain_match, chain_tables
+from .segment_finals import finals_match, finals_tables
 
 
 def finals_tier_requested() -> bool:
@@ -227,84 +226,21 @@ def build_segment_block(plans: list[SegmentPlan], device=None) -> SegmentBlock:
 # ---------------------------------------------------------------------------
 
 
-def _in_class(ivs: tuple, dpad: torch.Tensor) -> torch.Tensor:
-    acc = torch.zeros_like(dpad, dtype=torch.bool)
-    for lo, hi in ivs:
-        acc = acc | ((dpad >= lo) & (dpad <= hi)) if lo != hi else acc | (dpad == lo)
-    return acc
-
-
-def _channel_plane(chan: tuple, dpad: torch.Tensor) -> torch.Tensor:
-    kind = chan[0]
-    if kind == "hi":
-        return (dpad >> 4) == chan[1]
-    if kind == "lo":
-        return (dpad & 15) == chan[1]
-    if kind == "one":
-        return torch.ones_like(dpad, dtype=torch.bool)
-    return _in_class(chan[1], dpad)  # ('ind', intervals)
-
-
-def _rshift3(x: torch.Tensor, k: int) -> torch.Tensor:
-    """out[:, p] = x[:, p - k], zero fill."""
-    return _shift(x, -k, False if x.dtype == torch.bool else 0)
-
-
-def _lshift3(x: torch.Tensor, k: int) -> torch.Tensor:
-    """out[:, p] = x[:, p + k], zero fill."""
-    return _shift(x, k, False if x.dtype == torch.bool else 0)
-
-
-def _spread_or(x: torch.Tensor, lo: int, hi: int, forward: bool) -> torch.Tensor:
-    """OR-spread along axis 1: out[p] = ∃d ∈ [lo, hi (or ∞ if hi<0)]:
-    x[p + d] (forward) or x[p - d] (backward), by log-shift passes."""
-    q = x.shape[1]
-    sgn = 1 if forward else -1
-    assert hi < 0 or hi >= lo, f"empty gap range [{lo}, {hi}]"
-    if hi < 0:
-        y = x
-        k = 1
-        while k < q:
-            y = y | _shift(y, sgn * k, False)
-            k *= 2
-        return _shift(y, sgn * lo, False)
-    width = hi - lo + 1
-    y = x
-    span = 1  # y[p] == OR of x[p .. p + span-1] (direction-adjusted)
-    while span * 2 <= width:
-        y = y | _shift(y, sgn * span, False)
-        span *= 2
-    if span < width:
-        y = y | _shift(y, sgn * (width - span), False)
-    return _shift(y, sgn * lo, False)
-
-
-def _latch_min(vals: torch.Tensor, big: int, forward: bool) -> torch.Tensor:
-    """Running min along axis 1 (suffix-min if forward, prefix-min if
-    backward) via log-shift passes."""
-    q = vals.shape[1]
-    sgn = 1 if forward else -1
-    y = vals
-    k = 1
-    while k < q:
-        y = torch.minimum(y, _shift(y, sgn * k, big))
-        k *= 2
-    return y
-
-
-def _window_min(vals: torch.Tensor, lo: int, hi: int, big: int, forward: bool) -> torch.Tensor:
-    """Windowed min along axis 1: out[p] = min over d ∈ [lo, hi] of
-    vals[p + d] (forward) / vals[p - d] (backward)."""
-    sgn = 1 if forward else -1
-    width = hi - lo + 1
-    y = vals
-    span = 1
-    while span * 2 <= width:
-        y = torch.minimum(y, _shift(y, sgn * span, big))
-        span *= 2
-    if span < width:
-        y = torch.minimum(y, _shift(y, sgn * (width - span), big))
-    return _shift(y, sgn * lo, big)
+def _plane_table(channels: tuple) -> np.ndarray:
+    """[C, 256] bool: channel c's plane holds table[c, byte]."""
+    b = np.arange(256)
+    rows = []
+    for chan in channels:
+        kind = chan[0]
+        if kind == "hi":
+            rows.append((b >> 4) == chan[1])
+        elif kind == "lo":
+            rows.append((b & 15) == chan[1])
+        elif kind == "one":
+            rows.append(np.ones(256, dtype=bool))
+        else:  # ('ind', intervals)
+            rows.append(np.any([(b >= lo) & (b <= hi) for lo, hi in chan[1]], axis=0))
+    return np.asarray(rows, dtype=bool).reshape(len(channels), 256)
 
 
 def _branch_signature(spec: SegmentSpec, prog: tuple, a_start: bool, a_end: bool):
@@ -396,7 +332,15 @@ def finals_inputs(kernel, spec: SegmentSpec, data: torch.Tensor, lengths: torch.
     ``match_segment_block`` hands them to ``finals_match`` with the tier
     on: ``(embed, suffix, lengths, tables, q)``, or None when the block has
     no finals column."""
-    return _match(kernel, spec, data, lengths, True, cache, inputs_only=True, consts=consts)
+    return _match(kernel, spec, data, lengths, True, cache, inputs="finals", consts=consts)
+
+
+def chain_inputs(kernel, spec: SegmentSpec, data: torch.Tensor, lengths: torch.Tensor,
+                 *, consts: dict | None = None, finals_tier: bool = False):
+    """The chain's operands for ``data``, exactly as ``match_segment_block``
+    hands them to ``segment_chain.chain_match``: ``(out, data, lengths,
+    tables, off, tier)``, or None when the block has no branch."""
+    return _match(kernel, spec, data, lengths, finals_tier, {}, inputs="chain", consts=consts)
 
 
 @dataclass
@@ -421,6 +365,7 @@ class _Program:
     n_finals_cols: int  # the finals columns, allocated first
     gap_classes: tuple  # distinct 'gapcls' interval sets, in first-use order
     col_groups: tuple  # per hit column (buckets, then finals): gid or gid set
+    sid_col: dict  # sid -> its suffix column (struct order, members in turn)
 
 
 @dataclass
@@ -431,6 +376,8 @@ class _DeviceConsts:
     weights: dict  # off -> [N2 - off, C, W] conv weight in the conv dtype
     b2g: torch.Tensor | None  # [hit columns, G] float32 0/1: column -> group
     always: torch.Tensor | None  # [G] bool: groups that always match
+    planes: torch.Tensor  # [C, 256] bool: the embed's channel planes by byte
+    chain: ChainTables  # the chain program's tables (ops/segment_chain.py)
 
 
 def _program(spec: SegmentSpec) -> _Program:
@@ -516,12 +463,13 @@ def _program(spec: SegmentSpec) -> _Program:
     col_groups = [spec.branches[bi][0] for idxs in buckets.values() for bi in idxs]
     for gk in finals:
         col_groups.extend(final_gidsets[gk])  # deduped: one col -> gid set
+    sid_col = {sid: i for i, (_skey, sid) in enumerate(m for ms in struct.values() for m in ms)}
     return _Program(
         buckets=buckets, suffix_ids=suffix_ids, struct=struct, finals=finals,
         col_order=tuple(col_order), final_alloc=final_alloc, final_gidsets=final_gidsets,
         struct_alloc=struct_alloc, bucket_alloc=bucket_alloc,
         n_finals_cols=sum(len(gs) for gs in final_gidsets.values()),
-        gap_classes=gap_classes, col_groups=tuple(col_groups),
+        gap_classes=gap_classes, col_groups=tuple(col_groups), sid_col=sid_col,
     )
 
 
@@ -545,7 +493,11 @@ def _block_consts(kernel, spec: SegmentSpec, dev, store: dict) -> tuple[_Program
             al = np.zeros(spec.n_groups, dtype=bool)
             al[list(spec.always)] = True
             always = torch.as_tensor(al, device=dev)
-        dc = store[dev] = _DeviceConsts(kernel_p=kernel_p, weights={}, b2g=b2g, always=always)
+        dc = store[dev] = _DeviceConsts(
+            kernel_p=kernel_p, weights={}, b2g=b2g, always=always,
+            planes=torch.as_tensor(_plane_table(spec.channels), device=dev),
+            chain=chain_tables(prog, w=spec.w, device=dev),
+        )
     return prog, dc
 
 
@@ -560,44 +512,40 @@ def _conv_weight(dc: _DeviceConsts, off: int, dev) -> torch.Tensor:
 
 
 def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: dict,
-           inputs_only=False, consts: dict | None = None):
+           inputs: str | None = None, consts: dict | None = None):
+    """``match_segment_block``'s body; ``inputs`` "finals" or "chain" returns
+    that stage's operands instead of the hits."""
     t, ln = data.shape
     dev = data.device
     w = spec.w
     q = ln + 2  # chain positions: window starts 0 .. L+1
     lengths = lengths.to(torch.int32)
     # Front NUL pad (position 0) + right slack so every window is full.
-    dpad = F.pad(data.to(torch.int32), (1, w))  # [T, 1+L+W]
-
-    # 1. embed: channel planes from comparisons only.
-    planes = [_channel_plane(c, dpad) for c in spec.channels]
-
-    def stack_planes(dim: int) -> torch.Tensor:
-        """[T, C, 1+L+W] (dim 1, conv1d's layout) or [T, 1+L+W, C] (dim 2,
-        the finals tier's) bool."""
-        if planes:
-            return torch.stack(planes, dim=dim)
-        shape = [t, dpad.shape[1]]
-        shape.insert(dim, 0)
-        return torch.zeros(shape, dtype=torch.bool, device=dev)
+    dpad = F.pad(data.to(torch.int64), (1, w))  # [T, 1+L+W]
 
     # The static chain program (pure Python) and its device constants,
     # cached on the block: buckets, suffixes, finals and the conv column
     # layout, in which every consumer reads a contiguous slice.
     # The finals tier takes the finals columns, allocated first ([0, off)),
-    # out of the conv; mslice then reads conv columns shifted by off. The
-    # conv's exclusion and the dispatch below read the same `off`.
+    # out of the conv; the chain then reads conv columns shifted by off.
+    # The conv's exclusion and the dispatch below read the same `off`.
     prog, dc = _block_consts(kernel, spec, dev, {} if consts is None else consts)
     n_finals_cols = prog.n_finals_cols
     tier = finals_tier and n_finals_cols > 0
-    if inputs_only and not tier:
+    if (inputs == "finals" and not tier) or (inputs == "chain" and not spec.branches):
         return None
     off = n_finals_cols if tier else 0
     weight = _conv_weight(dc, off, dev)
-    buckets, suffix_ids, struct, finals = prog.buckets, prog.suffix_ids, prog.struct, prog.finals
-    struct_alloc, bucket_alloc, final_alloc = prog.struct_alloc, prog.bucket_alloc, prog.final_alloc
 
-    # 2. conv: all segments, all start positions. out[t, p, n] == 2W ⇔
+    # 1. embed: one lookup of every byte in the [C, 256] plane table.
+    planes = dc.planes[:, dpad]  # [C, T, 1+L+W] bool
+
+    def stack_planes(dim: int) -> torch.Tensor:
+        """[T, C, 1+L+W] (dim 1, conv1d's layout) or [T, 1+L+W, C] (dim 2,
+        the finals tier's) bool."""
+        return planes.permute(1, 0, 2) if dim == 1 else planes.permute(1, 2, 0)
+
+    # 2. conv: all segments, all start positions. out[t, n, p] == 2W ⇔
     # segment n matches the window starting at padded position p.
     # Exactness: every operand is 0, 1 or 2 and every sum is at most
     # 2W ≤ 48, so bf16 (integers exact to 256), float32 and TF32 (cuDNN's
@@ -605,183 +553,38 @@ def _match(kernel, spec: SegmentSpec, data, lengths, finals_tier: bool, cache: d
     # global precision flag is needed or set.
     cdt = _conv_dtype(dev)
     if weight.shape[0] and weight.shape[1]:  # [N2 - off, C, W]
-        out = F.conv1d(stack_planes(1).to(cdt), weight)  # [T, N2 - off, Q]
+        x = stack_planes(1).to(cdt, memory_format=torch.contiguous_format)
+        out = F.conv1d(x, weight)  # [T, N2 - off, Q]
     else:  # every column is a finals column, or no byte channel: nothing matches
         out = torch.zeros((t, weight.shape[0], q), dtype=cdt, device=dev)
-    m_all = (out >= 2.0 * w).permute(0, 2, 1)  # [T, Q, N2 - off]
-
-    def mslice(a0: int, a1: int) -> torch.Tensor:
-        """Columns [a0, a1) of the global allocation, off-adjusted."""
-        return m_all[:, :, a0 - off : a1 - off]
-
-    iota = torch.arange(q, dtype=torch.int32, device=dev)[None, :]  # [1, Q]
-    len1 = 1 + lengths[:, None]  # [T, 1] position just past the last byte
-    iota3 = iota[..., None]  # [1, Q, 1]
-    len3 = len1[..., None]  # [T, 1, 1]
-
-    # NCE (count of non-class bytes before p) per gap class: a [Q, Q]
-    # triangular matmul for small Q (0/1 operands, sums ≤ Q ≤ 512: exact
-    # in float32 and in TF32), an exclusive cumsum above _NCE_MATMUL_MAX_Q.
-    tri_excl = None
-    _tabs_cache: dict[tuple, tuple] = {}
-    for ivs in prog.gap_classes:
-        in_c = _in_class(ivs, dpad)[:, :q]  # byte at p ∈ class
-        if q > _NCE_MATMUL_MAX_Q:
-            non_i = (~in_c).to(torch.int32)
-            nce = torch.cumsum(non_i, dim=1, dtype=torch.int32) - non_i
-        else:
-            if tri_excl is None:
-                tri_excl = torch.triu(
-                    torch.ones((q, q), dtype=torch.float32, device=dev), 1
-                )  # [p', p]: p' < p
-            nce = ((~in_c).to(torch.float32) @ tri_excl).to(torch.int32)
-        _tabs_cache[ivs] = (in_c, nce)
-
-    big = 1 << 20
-
-    def gap_cls(x: torch.Tensor, ivs: tuple, lo: int, hi: int, forward: bool):
-        """Class-gap op along axis 1 of [T, Q, NB]. Forward (suffix/RTL):
-        out[p] = ∃d ∈ [lo, hi]: bytes [p, p+d) ∈ C ∧ x[p+d]. Backward
-        (bucket/LTR): out[p'] = ∃d: bytes [p'-d, p') ∈ C ∧ x[p'-d]."""
-        _, nce = _tabs_cache[ivs]
-        nce3 = nce[..., None]
-        bigt = torch.full_like(nce3, big)
-
-        def clean(d: int) -> torch.Tensor:
-            if d == 0:
-                return torch.ones((t, q, 1), dtype=torch.bool, device=dev)
-            return (_shift(nce3, d, big) - nce3) == 0
-
-        if hi >= 0:
-            if hi - lo + 1 <= 8:
-                acc = torch.zeros_like(x)
-                for d in range(lo, hi + 1):
-                    if forward:
-                        acc = acc | (_lshift3(x, d) & clean(d))
-                    else:
-                        acc = acc | _rshift3(x & clean(d), d)
-                return acc
-            if forward:
-                m = _window_min(torch.where(x, nce3, bigt), lo, hi, big, forward=True)
-                return m == nce3
-            m = -_window_min(torch.where(x, -nce3, bigt), lo, hi, big, forward=False)
-            return m == nce3
-        if forward:
-            x1 = _lshift3(x, lo) & clean(lo) if lo else x
-            h = _latch_min(torch.where(x1, nce3, bigt), big, forward=True)
-            return h == nce3
-        x1 = _rshift3(x & clean(lo), lo) if lo else x
-        h = -_latch_min(torch.where(x1, -nce3, bigt), big, forward=False)
-        return h == nce3
-
-    def run_bucket(sig: tuple, idxs: list[int]) -> torch.Tensor:
-        ops, a_start, a_end = sig
-        slots = bucket_alloc[sig]
-        nb = len(idxs)
-
-        # Single-seg fast path: evaluate at window starts, no shifts.
-        if len(ops) == 1 and ops[0][0] == "seg":
-            _, n_lead, n_real = ops[0]
-            a0, a1 = slots[0]
-            m = mslice(a0, a1)  # [T, Q, NB]
-            r = iota3 + n_lead  # real start for window at j
-            ok = (r >= 1) & (r + n_real <= len3)
-            if a_start:
-                ok = ok & (r == 1)
-            if a_end:
-                ok = ok & (r + n_real == len3)
-            return (m & ok).any(dim=1)  # [T, NB]
-
-        e = (iota3 == 1) if a_start else (iota3 >= 1)
-        e = e.expand(t, q, nb)
-        seg_i = 0
-        for op in ops:
-            if op[0] == "seg":
-                _, n_lead, n_real = op
-                a0, a1 = slots[seg_i]
-                seg_i += 1
-                m = _rshift3(mslice(a0, a1), n_lead)  # [T, Q, NB]
-                valid = (iota3 >= 1) & (iota3 + n_real <= len3)
-                e = e & m & valid
-                e = _rshift3(e, n_real)
-            elif op[0] == "gapany":
-                _, lo, hi = op
-                e = _spread_or(e, lo, hi, forward=False)
-            else:  # gapcls
-                _, ivs, lo, hi = op
-                e = gap_cls(e, ivs, lo, hi, forward=False)
-        if a_end:
-            return (e & (iota3 == len3)).any(dim=1)
-        return (e & (iota3 <= len3)).any(dim=1)
-
-    # --- suffix-deduped tier: right-to-left, batched over distinct suffixes.
-    # With the finals tier on, each signature's result also lands in its
-    # columns of one [T, Q, NS] buffer, the kernel's operand.
-    s_store: dict[int, torch.Tensor] = {}
-    sid_col: dict[int, int] = {}
-    suffix = (
-        torch.empty((t, q, len(suffix_ids)), dtype=torch.bool, device=dev) if tier else None
-    )
-    for sig_key, members in struct.items():
-        sig_ops, a_end = sig_key
-        ns = len(members)
-        s = ((iota3 == len3) if a_end else (iota3 <= len3)).expand(t, q, ns)
-        seg_slot = sum(1 for o in sig_ops if o[0] == "seg")
-        for op in reversed(sig_ops):
-            if op[0] == "seg":
-                seg_slot -= 1
-                _, n_lead, n_real = op
-                a0, a1 = struct_alloc[sig_key][seg_slot]
-                m = _rshift3(mslice(a0, a1), n_lead)  # index by real start
-                valid = (iota3 >= 1) & (iota3 + n_real <= len3)
-                s = m & valid & _lshift3(s, n_real)
-            elif op[0] == "gapany":
-                _, lo, hi = op
-                s = _spread_or(s, lo, hi, forward=True)
-            else:  # gapcls
-                _, ivs, lo, hi = op
-                s = gap_cls(s, ivs, lo, hi, forward=True)
-        if tier:
-            suffix[:, :, len(sid_col) : len(sid_col) + ns].copy_(s)
-        for i, (_skey, sid) in enumerate(members):
-            sid_col[sid] = len(sid_col)
-            s_store[sid] = s[:, :, i]
-
-    if tier:
-        if dev not in cache:
-            # Finals columns in allocation order, each tagged with its
-            # group; per group (suffix column, n_lead, n_real, a_start).
-            col_group = np.zeros(n_finals_cols, dtype=np.int32)
-            for slot, key in enumerate(finals):
-                a0, a1 = final_alloc[key]
-                col_group[a0:a1] = slot
-            desc = [(sid_col[sid], nl, nr, int(a_st)) for sid, nl, nr, a_st in finals]
-            weights = dc.kernel_p[:, :, :off].reshape(-1, off)  # [W*C, Nf]
-            cache[dev] = finals_tables(weights, desc, col_group, w=w)
-        tier_args = (
-            stack_planes(2),  # [T, 1+L+W, C]
-            suffix,  # [T, Q, NS]
-            lengths,
-            cache[dev],
-        )
-        if inputs_only:
-            return (*tier_args, q)
+    if inputs == "chain":
+        return out, data, lengths, dc.chain, off, tier
 
     hits = torch.zeros((t, spec.n_groups), dtype=torch.bool, device=dev)
     if spec.branches:
-        cols: list[torch.Tensor] = []
-        for sig, idxs in buckets.items():
-            cols.append(run_bucket(sig, idxs))  # [T, len(idxs)]
+        # 3. chain: the kernel on the card, its plain version on the CPU.
+        bh_all, suffix = chain_match(out, data, lengths, dc.chain, off=off, tier=tier)
         if tier:
-            cols.append(finals_match(*tier_args, q=q))  # [T, Nf]
-        else:
-            # Per finals group: where its first segment's window may start.
-            for key in finals:
-                sid, n_lead, n_real, a_start = key
-                gj = group_reach(s_store[sid], n_lead, n_real, a_start, iota, len1)  # [T, Q]
-                a0, a1 = final_alloc[key]
-                cols.append((mslice(a0, a1) & gj[:, :, None]).any(dim=1))  # [T, NB]
-        bh_all = torch.cat(cols, dim=1)  # columns in prog.col_groups order
+            if dev not in cache:
+                # Finals columns in allocation order, each tagged with its
+                # group; per group (suffix column, n_lead, n_real, a_start).
+                col_group = np.zeros(n_finals_cols, dtype=np.int32)
+                for slot, key in enumerate(prog.finals):
+                    a0, a1 = prog.final_alloc[key]
+                    col_group[a0:a1] = slot
+                desc = [(prog.sid_col[sid], nl, nr, int(a_st)) for sid, nl, nr, a_st in prog.finals]
+                weights = dc.kernel_p[:, :, :off].reshape(-1, off)  # [W*C, Nf]
+                cache[dev] = finals_tables(weights, desc, col_group, w=w)
+            tier_args = (
+                stack_planes(2),  # [T, 1+L+W, C]
+                suffix,  # [T, Q, NS]
+                lengths,
+                cache[dev],
+            )
+            if inputs == "finals":
+                return (*tier_args, q)
+            # 4. finals tier: columns in prog.col_groups order after the buckets'.
+            bh_all = torch.cat([bh_all, finals_match(*tier_args, q=q)], dim=1)
         # 0/1 operands, sums ≤ branches per group: exact in float32 and TF32.
         hits = (bh_all.to(torch.float32) @ dc.b2g) > 0
     if dc.always is not None:

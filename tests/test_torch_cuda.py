@@ -40,7 +40,9 @@ import torch
 from coraza_kubernetes_operator_tpu_torch.compiler import re_dfa
 from coraza_kubernetes_operator_tpu_torch.engine import HttpRequest, WafEngine
 from coraza_kubernetes_operator_tpu_torch.native import serialize_requests
-from coraza_kubernetes_operator_tpu_torch.ops import dfa, dfa_flat, dfa_gather, segment_finals
+from coraza_kubernetes_operator_tpu_torch.ops import (
+    dfa, dfa_flat, dfa_gather, segment, segment_chain, segment_finals,
+)
 from torch_rules import OVER_LIMIT, REJECT_RULES, REQUESTS, SMALL_RULES
 
 pytestmark = pytest.mark.cuda
@@ -286,7 +288,9 @@ import sys, threading
 import torch
 sys.path.insert(0, sys.argv[1])
 import test_torch_cuda as T
-from coraza_kubernetes_operator_tpu_torch.ops import dfa, dfa_flat, dfa_gather, segment_finals
+from coraza_kubernetes_operator_tpu_torch.ops import (
+    dfa, dfa_flat, dfa_gather, segment, segment_chain, segment_finals,
+)
 
 card = torch.device("cuda")
 LENGTHS, REPS, THREADS = (40, 64, 256, 1024, 2048), 2, 4
@@ -486,19 +490,42 @@ def test_abi_typed_launchers_equal_plain(card):
         (dfa_flat.scan_flat_bank(flat, by_pipe), dfa_flat.scan_flat_xla(flat, by_pipe)),
         (segment_finals.finals_match(e, s, lens, tables, q=q),
          segment_finals.finals_match_plain(e, s, lens, tables, q=q)),
+        (*_chain_pair(card, 4096, 64, 92),),
     ]
     torch.cuda.synchronize()
     for got, want in pairs:
         assert torch.equal(got, want)
-    for name in ("cko_scan_dense", "cko_scan_gather", "cko_scan_flat", "cko_finals_match"):
+    for name in ("cko_scan_dense", "cko_scan_gather", "cko_scan_flat", "cko_finals_match",
+                 "cko_chain_match"):
         fn = kernels._FUNCS[name]
         assert fn.argtypes == [kernels._CTYPES[t] for t in kernels._ABI[name]["args"]], name
         assert fn.restype is ctypes.c_int
-    for stem in ("dfa_scan", "segment_finals"):
+    for stem in ("dfa_scan", "segment_finals", "segment_chain"):
         assert kernels._LIBS[stem].cko_error_string(0) == b"no error"
     finals = kernels._FUNCS["cko_finals_match"]
     with pytest.raises(ctypes.ArgumentError):
         finals(*[ctypes.c_int(0)] * len(finals.argtypes))  # an int where a pointer goes
+
+
+def _chain_block(device):
+    """A segment block of bucket, suffix and finals chains with every op
+    kind and both anchors."""
+    from coraza_kubernetes_operator_tpu_torch.compiler.re_parser import parse_regex
+    from coraza_kubernetes_operator_tpu_torch.compiler.segments import plan_segments
+
+    pats = [r"(?i)select\b.+\bfrom", r"a{2,4}b", r"^/admin", r"passwd$", r"x\d{3}y",
+            r"(?i)<script[^>]*>", r"select\b[^;]{0,40}\bfrom", r"go[\s\S]*stop", r"^go.*stop$"]
+    return segment.build_segment_block([plan_segments(parse_regex(p)) for p in pats], device=device)
+
+
+def _chain_pair(card, b, length, seed, tier=False):
+    """(kernel, plain) hit columns of ``_chain_block`` on seeded rows."""
+    blk = _chain_block(card)
+    data, lens = _on(card, *_rows(b, length, seed))
+    out, d, l, tables, off, t_on = segment.chain_inputs(blk.kernel, blk.spec, data, lens,
+                                                        consts=blk.consts, finals_tier=tier)
+    return (segment_chain.chain_match(out, d, l, tables, off=off, tier=t_on)[0],
+            segment_chain.chain_match_plain(out, d, l, tables, off=off, tier=t_on)[0])
 
 
 # -- stage graphs (engine/compile_cache.py) -----------------------------------
@@ -512,7 +539,7 @@ def crs_lite():
     return WafEngine(load_ruleset_text())
 
 
-_LAUNCH_MODS = (dfa, dfa_gather, dfa_flat, segment_finals)
+_LAUNCH_MODS = (dfa, dfa_gather, dfa_flat, segment_finals, segment_chain)
 
 
 def _counted(fn):
@@ -561,6 +588,7 @@ def test_stage_graphs_replay_the_eager_bits(card, crs_lite, monkeypatch, b, leng
         torch.cuda.synchronize()
         assert torch.equal(got, want) and n_got == n_want, (seed, n_got, n_want)
         assert n_want[0] + n_want[1] + n_want[2] > 0 and (n_want[3] > 0) == (finals == "1")
+        assert n_want[4] > 0  # the chain kernel, in every matcher stage
         post = (crs_lite.model, (want,), (pairs,), numvals)
         got = cache.call(eval_post_tiered, post, {"max_phase": 2}, {"cached": None})
         want = eval_post_tiered(*post, max_phase=2, cached=None)
@@ -740,3 +768,55 @@ def test_reinit_device_releases_the_graphs(card, monkeypatch):
             for v in WafEngine(SMALL_RULES, device="cpu").evaluate(reqs)]
     for _ in range(3):
         assert [(v.interrupted, v.status, v.rule_id) for v in eng.evaluate(reqs)] == want
+
+
+# -- the chain kernel (csrc/segment_chain.cu) ----------------------------------
+
+CHAIN_SHAPES = SHAPES[:3] + [(300, 130), (300, 200), (8, 16384)]
+CHAIN_IDS = SHAPE_IDS[:3] + ["registers-3-words", "scratch", "16384"]
+
+
+@pytest.mark.parametrize("tier", [False, True], ids=["finals-off", "finals-on"])
+@pytest.mark.parametrize("b,length", CHAIN_SHAPES, ids=CHAIN_IDS)
+def test_chain_kernel_equals_plain(card, crs_lite, b, length, tier):
+    """``cko_chain_match`` gives ``chain_match_plain``'s bits on every
+    crs-lite block (hit columns, and the suffix bits with the finals tier
+    on), and books one launch per call, two with the finals columns."""
+    for bi, blk in enumerate(crs_lite.model.segs):
+        data, lens = _on(card, *_rows(b, length, seed=10 * bi + length))
+        ins = segment.chain_inputs(blk.kernel, blk.spec, data, lens, consts=blk.consts, finals_tier=tier)
+        if ins is None:
+            continue
+        out, d, l, tables, off, t_on = ins
+        before = segment_chain.LAUNCHES
+        got = segment_chain.chain_match(out, d, l, tables, off=off, tier=t_on)
+        launched = segment_chain.LAUNCHES - before
+        want = segment_chain.chain_match_plain(out, d, l, tables, off=off, tier=t_on)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), bi
+        assert (got[1] is None) == (want[1] is None) == (not t_on), bi
+        if t_on:
+            assert torch.equal(got[1], want[1]), bi
+        assert launched == 1 + int(not t_on and tables.nf > 0), (bi, launched)
+
+
+def test_chain_without_its_library_raises(card, monkeypatch):
+    """No fallback: on a card, a chain whose library cannot be built
+    raises, from the wrapper and from the matcher."""
+    from coraza_kubernetes_operator_tpu_torch.ops import kernels
+
+    blk = _chain_block(card)
+    data, lens = _on(card, *_rows(64, 64, seed=5))
+    out, d, l, tables, off, t_on = segment.chain_inputs(blk.kernel, blk.spec, data, lens, consts=blk.consts)
+
+    def unbuildable():
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+    monkeypatch.setattr(kernels, "_FUNCS", {})
+    monkeypatch.setattr(kernels, "build", unbuildable)
+    before = segment_chain.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        segment_chain.chain_match(out, d, l, tables, off=off, tier=t_on)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        segment.match_segment_block(blk.kernel, blk.spec, data, lens, cache=blk.finals, consts=blk.consts)
+    assert segment_chain.LAUNCHES == before

@@ -38,6 +38,7 @@ from coraza_kubernetes_operator_tpu.ops.segment_pallas import finals_match as jf
 from coraza_kubernetes_operator_tpu_torch.compiler.re_parser import parse_regex as tparse
 from coraza_kubernetes_operator_tpu_torch.compiler.segments import plan_segments as tplan
 from coraza_kubernetes_operator_tpu_torch.ops import segment as tseg
+from coraza_kubernetes_operator_tpu_torch.ops import segment_chain as tchain
 from coraza_kubernetes_operator_tpu_torch.ops import segment_finals as tfin
 
 CPU = torch.device("cpu")
@@ -318,7 +319,8 @@ def test_tier_on_builds_no_group_rows_and_caches_tables(monkeypatch):
     off = tseg.match_segment_block(tb.kernel, tb.spec, d, ln, cache=tb.finals).numpy()
     assert not tb.finals
     monkeypatch.setenv("CKO_PALLAS_FINALS", "1")
-    monkeypatch.setattr(tseg, "group_reach", lambda *a: pytest.fail("group rows built with the tier on"))
+    # The chain (ops/segment_chain.py) is where the tier-off path builds group rows.
+    monkeypatch.setattr(tchain, "group_reach", lambda *a: pytest.fail("group rows built with the tier on"))
     built, seen = [], []
     real_tables, real_match = tseg.finals_tables, tseg.finals_match
     monkeypatch.setattr(tseg, "finals_tables", lambda *a, **k: built.append(1) or real_tables(*a, **k))

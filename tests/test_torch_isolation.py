@@ -107,6 +107,21 @@ def test_entry_points_default_to_the_card(monkeypatch):
     assert eng.model.device == torch.device("cpu")
 
 
+def test_serving_entry_points_default_to_the_card(monkeypatch):
+    """The sidecar (``SidecarConfig.device`` None, what ``gpu-engine``
+    renders) and the sharded engine's rule shard take the card, and raise
+    where there is none."""
+    from coraza_kubernetes_operator_tpu_torch.parallel import mesh
+    from coraza_kubernetes_operator_tpu_torch.sidecar import server
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert server._device_type(None) == "cuda"
+    assert server._device_type("cpu") == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mesh.build_sharded_model(compile_rules(corpus.sample_rules()), 1)
+    assert mesh.build_sharded_model(compile_rules(SMALL_RULES), 1, device="cpu").post.device == torch.device("cpu")
+
+
 def test_cpu_tensors_never_reach_the_cuda_build(monkeypatch):
     def refuse(*_a, **_k):
         raise AssertionError("a CPU tensor reached the CUDA kernel build")
@@ -132,9 +147,10 @@ def test_scans_refuse_other_devices():
 
 def test_kernel_sources_are_found():
     names = [p.name for p in kernels.sources()]
-    assert names == ["dfa_scan.cu", "segment_finals.cu"]
+    assert names == ["dfa_scan.cu", "segment_chain.cu", "segment_finals.cu"]
     src = (kernels.CSRC / "dfa_scan.cu").read_text()
     for launcher in ("cko_scan_dense", "cko_scan_gather", "cko_scan_flat"):
         assert f"int {launcher}(" in src
     assert "int cko_finals_match(" in (kernels.CSRC / "segment_finals.cu").read_text()
+    assert "int cko_chain_match(" in (kernels.CSRC / "segment_chain.cu").read_text()
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS

@@ -3,8 +3,8 @@
 A ctypes launcher runs on the calling thread's current card, which need
 not be the card its tensors are on. The three launch sites of the port
 (``ops/dfa.py::launch_tier``, which the dense and gather tiers share,
-``ops/dfa_flat.py::launch_flat`` and ``ops/segment_finals.py::
-launch_finals``) must therefore call every launcher inside
+``ops/dfa_flat.py::launch_flat``, ``ops/segment_finals.py::
+launch_finals`` and ``ops/segment_chain.py::launch_chain``) must therefore call every launcher inside
 ``ops/kernels.py::on_device`` of the tensors' device, and pass the stream
 that the guard yields. Here the launchers are replaced by recorders and the
 sites run on CPU tensors: the order of guard entries, launcher calls and
@@ -19,7 +19,11 @@ import ctypes
 import pytest
 import torch
 
-from coraza_kubernetes_operator_tpu_torch.ops import dfa, dfa_flat, dfa_gather, kernels, segment_finals
+from coraza_kubernetes_operator_tpu_torch.compiler.re_parser import parse_regex
+from coraza_kubernetes_operator_tpu_torch.compiler.segments import plan_segments
+from coraza_kubernetes_operator_tpu_torch.ops import (
+    dfa, dfa_flat, dfa_gather, kernels, segment, segment_chain, segment_finals,
+)
 from test_torch_cuda import FLAT_GROUPS, SMALL, _finals_operands, _on, _rows
 
 CPU = torch.device("cpu")
@@ -102,3 +106,22 @@ def test_finals_launches_under_the_inputs_device(record):
     out = segment_finals.launch_finals(embed, suffix, lens, tables, q)
     assert out.shape == (9, tables.nf)
     _guarded(record, "cko_finals_match", 1)
+
+
+@pytest.mark.parametrize("tier", [False, True], ids=["finals-off", "finals-on"])
+def test_chain_launches_under_the_inputs_device(record, tier):
+    # One chain launch; with the finals tier off a second for the finals
+    # columns, from the same launcher call.
+    blk = segment.build_segment_block(
+        [plan_segments(parse_regex(p)) for p in (r"select\b.+\bfrom", r"a{2,4}b", r"^go.*stop$")],
+        device=CPU,
+    )
+    data, lens = _rows(12, 200, seed=2)  # Q = 202: the bitmaps in the scratch
+    out, d, l, tables, off, tier_on = segment.chain_inputs(
+        blk.kernel, blk.spec, torch.as_tensor(data), torch.as_tensor(lens), finals_tier=tier)
+    bh, sfx, n = segment_chain.launch_chain(out, d, l, tables, off, tier_on)
+    assert tier_on == tier and tables.nf > 0
+    assert n == (1 if tier else 2)
+    assert bh.shape == (12, tables.n_bucket_cols + (0 if tier else tables.nf))
+    assert (sfx is not None) == tier
+    _guarded(record, "cko_chain_match", 1)
