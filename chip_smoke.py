@@ -18,9 +18,13 @@ failure exits non-zero; no phase is caught):
    block's own chain program (``ops/segment.py::finals_inputs``), and the
    chain kernel on every crs-lite segment block, its operands (the block's
    conv output, rows and lengths) from ``ops/segment.py::chain_inputs``,
-   with the finals tier off (timed) and on. Each kernel's output must be
-   bit-equal to its plain version's on the card. Times come from CUDA
-   events after warm-up around the wrappers' calls;
+   with the finals tier off and on (both timed, one launch per block in
+   each, each block's tile plan logged); then the conv in front of the
+   chain in its two layouts (``F.conv1d`` on [T, C, Lp] and a
+   channels-last ``F.conv2d`` on the embed's [T, Lp, C]), bit-equal and
+   timed. Each kernel's output must be bit-equal to its plain version's on
+   the card. Times come from CUDA events after warm-up around the
+   wrappers' calls;
 3. the slice-1 path: ``WafEngine(crs-lite).evaluate`` on a 4096-request
    window on the card (Python tensorize path, finals tier off; each stage's
    first sight, so eager), verdicts identical to the same engine on the
@@ -105,13 +109,15 @@ failure exits non-zero; no phase is caught):
    on the CPU over gloo;
 5. after every timed window (no profiler session runs before them): each
    kernel's own device time per launch at phase 2's shapes, from one
-   ``torch.profiler`` pass each (kernel events by name); then one
-   profiled finals-on blob window, eager (launches, device busy time, and
-   no [T, Q, Gf] stack of per-group rows) and the same window replayed;
-   and one phase-3 window eager and replayed; each profiled window logs
-   its kernel launches, device busy ms, each hand kernel's launches and
-   ms, and the stage graphs' pool bytes. The smoke's total seconds
-   close the log.
+   ``torch.profiler`` pass each (kernel events by name; the chain kernel
+   finals off and on), and both conv layouts' kernels by part (conv,
+   transposes); then one profiled finals-on blob window, eager (launches,
+   device busy time, and no [T, Q, Gf] stack of per-group rows) and the
+   same window replayed, the same with the finals tier off, and one
+   phase-3 window eager and replayed; each profiled window logs its kernel
+   launches, device busy ms, each hand kernel's launches and ms, the
+   matcher's conv, conv transposes and chain apart, and the stage graphs'
+   pool bytes. The smoke's total seconds close the log.
 
 Phases run in the order 0-4, 6, 7, 8, 5. The last lines are the kernel
 table (one JSON object; ``launches`` from phase 4's window, and per kernel
@@ -119,8 +125,8 @@ its launches on the sidecar, conformance and sharded paths where those
 reach it), the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. With no card, or
 without the package beside this file, it exits non-zero and prints no
-result. ``--profile FILE`` writes the profiled phase-4 window's
-``torch.profiler`` table by kernel name to FILE. ``--probe-profiler``
+result. ``--profile FILE`` writes the profiled phase-4 windows'
+``torch.profiler`` tables by kernel name to FILE. ``--probe-profiler``
 asks whether a ``torch.profiler`` session slows the windows that follow
 it: before phase 5 it times fresh phase-3 and finals-off blob windows,
 opens and closes one empty profiler session, times them again, and once
@@ -331,7 +337,8 @@ def prewarm_windows(tag, card, engine, windows) -> None:
 
 def profiled_window(engine, submit, eager: bool):
     """(wall ms, device busy ms, kernel launches, per-kernel (launches, ms),
-    profiler) for one window under ``torch.profiler``."""
+    profiler, the matcher's parts (launches, ms)) for one window under
+    ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -349,7 +356,69 @@ def profiled_window(engine, submit, eager: bool):
     mine = {name: (sum(e.count for e in kernel_events if name in e.key),
                    sum(e.self_device_time_total for e in kernel_events if name in e.key) / 1e3)
             for name in HAND_KERNELS}
-    return wall_ms, device_ms, n_launch, mine, events
+    return wall_ms, device_ms, n_launch, mine, events, kernel_parts(kernel_events)
+
+
+def part_of(key: str) -> str | None:
+    """The part of the conv-segment matcher a kernel event belongs to: the
+    chain kernel, the conv's layout transposes (cuDNN's NCHW <-> NHWC
+    kernels and tensor transforms) or the conv itself (cuDNN's other
+    kernels); None for the rest."""
+    if "chain_kernel" in key:
+        return "chain"
+    if any(k in key for k in ("nchwToNhwc", "nhwcToNchw", "tensorTransform")):
+        return "conv transposes"
+    if any(k in key for k in ("cudnn", "fprop", "implicit_convolve")):
+        return "conv"
+    return None
+
+
+def kernel_parts(kernel_events) -> dict:
+    """{part: (launches, device ms)} over CUDA kernel events."""
+    parts = {"conv": [0, 0.0], "conv transposes": [0, 0.0], "chain": [0, 0.0]}
+    for e in kernel_events:
+        p = part_of(e.key)
+        if p:
+            parts[p][0] += e.count
+            parts[p][1] += e.self_device_time_total / 1e3
+    return {k: (n, round(ms, 4)) for k, (n, ms) in parts.items()}
+
+
+def profiled_parts(fn) -> dict:
+    """``kernel_parts`` of one call of ``fn`` (after one warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_parts([e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA])
+
+
+def conv_layouts(segment, blk, b: int, length: int, rng, dev):
+    """(conv1d, channels-last conv2d) calls of ``blk``'s conv on seeded
+    rows, each from the embed planes (``ops/segment.py::_match``'s steps 1
+    and 2 in either layout); both give [T, N2, Q]."""
+    import torch
+    import torch.nn.functional as F
+
+    _prog, dc = segment._block_consts(blk.kernel, blk.spec, dev, blk.consts)
+    weight = segment._conv_weight(dc, 0, dev)  # [N2, C, W] bf16
+    w4 = weight[:, :, None, :].contiguous(memory_format=torch.channels_last)
+    d, _l = random_rows(rng, b, length)
+    planes = dc.planes[:, F.pad(torch.as_tensor(d, device=dev).to(torch.int64), (1, blk.spec.w))]
+
+    def ncl():
+        return F.conv1d(planes.permute(1, 0, 2).to(weight.dtype, memory_format=torch.contiguous_format),
+                        weight)
+
+    def nhwc():
+        x = planes.permute(1, 2, 0).to(weight.dtype, memory_format=torch.contiguous_format)  # [T, Lp, C]
+        return F.conv2d(x.permute(0, 2, 1)[:, :, None, :], w4)[:, :, 0, :]
+
+    return ncl, nhwc
 
 
 class GroupRowStacks:
@@ -1230,7 +1299,8 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     # Each kernel's own device time per launch is read by torch.profiler
     # after the timed windows (phase 5), so no profiler session runs
-    # before them: (kernel, B, L, function making the cases, kernel event name, reps).
+    # before them: (kernel, B, L, function making the cases, kernel event name, reps,
+    # the table key that takes the SHAPES[0] reading).
     deferred = []
 
     def scan_case(name, banks, b, length, rng):
@@ -1307,7 +1377,7 @@ def main() -> int:
             plain_ms = cuda_ms(lambda: [c[1]() for c in cases], 2)
             deferred.append((kname, b, length, lambda s_=short, bk=banks, b=b, length=length:
                              scan_case(s_, bk, b, length, np.random.default_rng(SEED)),
-                             dev_name, reps))
+                             dev_name, reps, "device_ms_per_launch"))
             nbytes = sum(c[2] for c in cases)
             lookups = sum(c[3] for c in cases)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, lookups / lookups_per_s * 1e3
@@ -1388,7 +1458,8 @@ def main() -> int:
         plain_ms = cuda_ms(lambda: [c[1]() for c in cases], 2)
         conv_ms = cuda_ms(lambda: [c[2]() for c in cases], reps)
         deferred.append(("cko_finals_match", b, length, lambda b=b, length=length:
-                         finals_cases(b, length, np.random.default_rng(SEED)), "finals_kernel", reps))
+                         finals_cases(b, length, np.random.default_rng(SEED)), "finals_kernel", reps,
+                         "device_ms_per_launch"))
         nbytes = sum(c[3] for c in cases)
         gated = sum(c[4] for c in cases)
         dense = sum(c[5] for c in cases)
@@ -1415,7 +1486,8 @@ def main() -> int:
     # block's own conv on seeded rows (segment.chain_inputs).
     def chain_cases(b, length, rng, tier=False):
         """Per block: (kernel call, plain call, bytes needed, operations,
-        finals tier on: the block has finals columns and ``tier``)."""
+        finals tier on: the block has finals columns and ``tier``, the
+        kernel's tile: rows, shared bytes, global scratch)."""
         cases = []
         for blk in model.segs:
             d, l = random_rows(rng, b, length)
@@ -1438,10 +1510,11 @@ def main() -> int:
                         for u in h["units"])
             ops = 3 * live + 8 * b * q * walks
             operands = (conv, d_, l_, tables)
+            plan = segment_chain.chain_plan(b, q, conv.shape[1], tables.ns, tables.ncls, tables.n_units)
             cases.append((
                 lambda a=operands, o=off, t=t_on: segment_chain.chain_match(*a, off=o, tier=t),
                 lambda a=operands, o=off, t=t_on: segment_chain.chain_match_plain(*a, off=o, tier=t),
-                nbytes, ops, t_on,
+                nbytes, ops, t_on, (plan.rows, plan.smem, bool(plan.scratch_words)),
             ))
         return cases
 
@@ -1449,26 +1522,32 @@ def main() -> int:
         for tier in (False, True):
             cases = chain_cases(b, length, rng, tier)
             n0 = segment_chain.LAUNCHES
-            for kern, plain, _nb, _ops, t_on in cases:
+            for kern, plain, _nb, _ops, t_on, _plan in cases:
                 (bh, sfx), (want, want_sfx) = kern(), plain()
                 torch.cuda.synchronize()
                 if not torch.equal(bh, want) or (t_on and not torch.equal(sfx, want_sfx)):
                     raise SystemExit(f"cko_chain_match B={b} L={length} finals tier {tier}: "
                                      f"{int((bh != want).sum())} hit bits differ from the plain version")
             per_call = segment_chain.LAUNCHES - n0
+            if per_call != len(cases):
+                raise SystemExit(f"cko_chain_match B={b} L={length} finals tier {tier}: {per_call} "
+                                 f"launches for {len(cases)} blocks (one each expected)")
             reps = 10 if length <= 64 else 3
             ms = cuda_ms(lambda: [c[0]() for c in cases], reps)
             plain_ms = cuda_ms(lambda: [c[1]() for c in cases], 2)
             nbytes, ops = sum(c[2] for c in cases), sum(c[3] for c in cases)
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / CUDA_CORE_OPS_PER_S * 1e3
             bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-            log(f"phase 2: cko_chain_match B={b} L={length} finals tier {'on' if tier else 'off'} "
+            tag = "on" if tier else "off"
+            log(f"phase 2: cko_chain_match B={b} L={length} finals tier {tag} "
                 f"blocks={len(cases)} launches={per_call}: bit-equal; ms={ms:.4f} "
                 f"({ms / per_call:.4f} per launch) plain_ms={plain_ms:.3f} bound_ms={bound_ms:.5f} "
-                f"({bound_by}: {nbytes} B, {ops} operations) [{card}]")
-            if not tier:
-                deferred.append(("cko_chain_match", b, length, lambda b=b, length=length:
-                                 chain_cases(b, length, np.random.default_rng(SEED)), "chain_kernel", reps))
+                f"({bound_by}: {nbytes} B, {ops} operations); tiles per block (rows, shared bytes, "
+                f"global scratch) {[c[5] for c in cases]} [{card}]")
+            key = "device_ms_per_launch" + ("_finals_on" if tier else "")
+            deferred.append(("cko_chain_match", b, length, lambda b=b, length=length, tier=tier:
+                             chain_cases(b, length, np.random.default_rng(SEED), tier), "chain_kernel", reps,
+                             key))
             if (b, length) == SHAPES[0] and not tier:
                 table["cko_chain_match"] = {
                     "name": "cko_chain_match", "route": "cuda",
@@ -1478,8 +1557,31 @@ def main() -> int:
                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                     "launches_per_call": per_call, "device_ms_per_launch": None,
                 }
+            elif (b, length) == SHAPES[0]:
+                table["cko_chain_match"].update({
+                    "ms_finals_on": ms, "plain_ms_finals_on": plain_ms, "bound_ms_finals_on": bound_ms,
+                    "bound_by_finals_on": bound_by, "launches_per_call_finals_on": per_call,
+                    "device_ms_per_launch_finals_on": None,
+                })
             del cases
             torch.cuda.empty_cache()
+
+    # The conv in front of the chain in two layouts: F.conv1d on the embed
+    # as [T, C, Lp] (the port's; cuDNN transposes it to NHWC and back) and
+    # F.conv2d on the embed's own [T, Lp, C] viewed as [T, C, 1, Lp]
+    # channels-last. Same bits; CUDA-event times here, each layout's
+    # kernels by part (conv, transposes) in phase 5.
+    for b, length in SHAPES:
+        convs = [conv_layouts(segment, blk, b, length, rng, dev) for blk in model.segs]
+        for ncl, nhwc in convs:
+            if not torch.equal(ncl().float(), nhwc().float()):
+                raise SystemExit(f"conv layouts B={b} L={length}: the channels-last conv differs")
+        reps = 5 if length <= 64 else 2
+        times = [cuda_ms(lambda i=i: [c[i]() for c in convs], reps) for i in (0, 1)]
+        log(f"phase 2: conv B={b} L={length} over {len(convs)} blocks: bit-equal; conv1d [T, C, Lp] "
+            f"{times[0]:.4f} ms, conv2d channels-last {times[1]:.4f} ms [{card}]")
+        del convs
+        torch.cuda.empty_cache()
 
     # -- phase 3: the slice-1 path ---------------------------------------------
     reqs = synthetic_requests(4096, attack_ratio=0.3, seed=1)
@@ -1674,14 +1776,21 @@ def main() -> int:
     os.environ["CKO_PALLAS_FINALS"] = "1"
 
     # -- phase 5: each kernel's own device time per launch ----------------------
-    for kname, b, length, build, dev_name, reps in deferred:
+    for kname, b, length, build, dev_name, reps, key in deferred:
         cases = build()
         dev_ms, seen = device_ms_per_launch(lambda: [c[0]() for c in cases], dev_name, reps)
-        log(f"phase 5: {kname} B={b} L={length}: device_ms_per_launch={dev_ms} ({seen} "
+        log(f"phase 5: {kname} B={b} L={length}: {key}={dev_ms} ({seen} "
             f"{dev_name} events over {reps} reps of {len(cases)} calls) [{card}]")
         if (b, length) == SHAPES[0]:
-            table[kname]["device_ms_per_launch"] = dev_ms
+            table[kname][key] = dev_ms
         del cases
+        torch.cuda.empty_cache()
+    for b, length in SHAPES:
+        convs = [conv_layouts(segment, blk, b, length, np.random.default_rng(SEED), dev) for blk in model.segs]
+        parts = [profiled_parts(lambda i=i: [c[i]() for c in convs]) for i in (0, 1)]
+        log(f"phase 5: conv B={b} L={length} over {len(convs)} blocks, (launches, device ms) by "
+            f"part: conv1d [T, C, Lp] {parts[0]}; conv2d channels-last {parts[1]} [{card}]")
+        del convs
         torch.cuda.empty_cache()
     if args.probe_profiler:
         probe(f"after phase 5's {len(deferred)} profiler sessions", 500)
@@ -1698,43 +1807,54 @@ def main() -> int:
     window = synthetic_requests(4096, attack_ratio=0.3, seed=999)
     blob = native.serialize_requests(window)
     with GroupRowStacks(gfs, qs) as watch:
-        wall_ms, device_ms, n_launch, mine, events = profiled_window(
+        wall_ms, device_ms, n_launch, mine, events, parts = profiled_window(
             eng4, lambda: eng4.prepare_blob(blob, len(window)), eager=True)
     stacks = watch.count
     log(f"phase 4: profiled blob window (finals on, eager): {wall_ms:.1f} ms wall (profiler on), "
         f"device busy {device_ms:.3f} ms ({device_ms / wall_ms:.1%}) in "
-        f"{n_launch} kernel launches; (launches, device ms) {mine}; [T, Q, Gf] stacks of "
+        f"{n_launch} kernel launches; (launches, device ms) {mine}; by part {parts}; [T, Q, Gf] stacks of "
         f"group rows (Gf in {sorted(gfs)}, Q in {sorted(qs)}): {stacks}; resident graphs "
         f"{len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes()} B [{card}]")
     if stacks:
         raise SystemExit(f"the finals-on window built {stacks} [T, Q, Gf] stacks")
     report = events.table(sort_by="self_cuda_time_total", row_limit=40)
     log("\n".join(report.splitlines()[:25]))
-    # The same window through its stage graphs, then the Python path's
-    # window eager and replayed: device busy and launches per window.
+    # The same window through its stage graphs, then with the finals tier
+    # off, eager and replayed; then the Python path's window eager and
+    # replayed: device busy and launches per window, the matcher by part.
     eng4.prewarm(window)
     g = profiled_window(eng4, lambda: eng4.prepare_blob(blob, len(window)), eager=False)
     log(f"phase 4: profiled blob window (finals on, graph): {g[0]:.1f} ms wall (profiler on), "
         f"device busy {g[1]:.3f} ms ({g[1] / g[0]:.1%}) in {g[2]} kernel launches; (launches, "
-        f"device ms) {g[3]}; resident graphs {len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes()} B "
-        f"[{card}]")
-    graph_report = g[4].table(sort_by="self_cuda_time_total", row_limit=40)
-    log("\n".join(graph_report.splitlines()[:25]))
+        f"device ms) {g[3]}; by part {g[5]}; resident graphs {len(EXEC_CACHE)}, pool "
+        f"{EXEC_CACHE.pool_bytes()} B [{card}]")
+    reports = {"finals on, eager": report, "finals on, graph": g[4].table(sort_by="self_cuda_time_total",
+                                                                          row_limit=40)}
+    log("\n".join(reports["finals on, graph"].splitlines()[:25]))
     if not all(g[3][k][0] for k in HAND_KERNELS):
         log(f"phase 4: the profiler does not name every hand kernel inside the replayed graphs: {g[3]}")
     os.environ["CKO_PALLAS_FINALS"] = "0"
+    eng4.prewarm(window)
+    for mode in ("eager", "graph"):
+        w_ms, d_ms, n_l, mine4, ev4, parts4 = profiled_window(
+            eng4, lambda: eng4.prepare_blob(blob, len(window)), eager=mode == "eager")
+        log(f"phase 4: profiled blob window (finals off, {mode}): {w_ms:.1f} ms wall (profiler on), "
+            f"device busy {d_ms:.3f} ms ({d_ms / w_ms:.1%}) in {n_l} kernel launches; (launches, "
+            f"device ms) {mine4}; by part {parts4}; resident graphs {len(EXEC_CACHE)}, pool "
+            f"{EXEC_CACHE.pool_bytes()} B [{card}]")
+        reports[f"finals off, {mode}"] = ev4.table(sort_by="self_cuda_time_total", row_limit=40)
     window3 = synthetic_requests(4096, attack_ratio=0.3, seed=998)
     eng.prewarm(window3)
     for mode in ("eager", "graph"):
-        w_ms, d_ms, n_l, mine3, _ev = profiled_window(eng, lambda: eng.prepare(window3),
-                                                      eager=mode == "eager")
+        w_ms, d_ms, n_l, mine3, _ev, parts3 = profiled_window(eng, lambda: eng.prepare(window3),
+                                                              eager=mode == "eager")
         log(f"phase 3: profiled window ({mode}): {w_ms:.1f} ms wall (profiler on), device busy "
             f"{d_ms:.3f} ms ({d_ms / w_ms:.1%}) in {n_l} kernel launches; (launches, device ms) "
-            f"{mine3}; resident graphs {len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes()} B [{card}]")
+            f"{mine3}; by part {parts3}; resident graphs {len(EXEC_CACHE)}, pool {EXEC_CACHE.pool_bytes()} B [{card}]")
     os.environ["CKO_PALLAS_FINALS"] = "1"
     if args.profile:
         args.profile.parent.mkdir(parents=True, exist_ok=True)
-        args.profile.write_text(f"{card}\neager\n{report}\ngraph\n{graph_report}\n")
+        args.profile.write_text(f"{card}\n" + "".join(f"{k}\n{v}\n" for k, v in reports.items()))
     log(f"stage cache at the end {EXEC_CACHE.stats()}; resident graphs {len(EXEC_CACHE)}, pool "
         f"{EXEC_CACHE.pool_bytes() / 2**30:.2f} GiB; smoke {time.perf_counter() - T_START:.1f} s")
 

@@ -89,12 +89,13 @@ _ABI: dict = {
     },
     "cko_chain_match": {
         # conv, data, lens, units, ucum, ops, cls, fin, T, L, Q, ncol, off,
-        # W, U, M, NS, NF, nbc, ldo, finals, G, bits, packed, sfx, bh, stream.
+        # W, U, M, NS, NF, ncls, nbc, ldo, finals, rows, grid, smem,
+        # at_sfx, at_cls, at_state, tile_u64, at_ints, scratch, sfx, bh, stream.
         "args": [
             "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr", "ptr",
             "int", "int", "int", "int", "int", "int", "int", "int", "int", "int", "int", "int",
-            "int", "int",
-            "ptr", "ptr", "ptr", "ptr", "ptr",
+            "int", "int", "int", "int", "int", "int", "int", "int", "int", "int",
+            "ptr", "ptr", "ptr", "ptr",
         ],
         "ret": "int",
     },

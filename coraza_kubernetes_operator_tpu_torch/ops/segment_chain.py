@@ -11,7 +11,10 @@ fuses; the port runs it as a hand-written kernel.
 - ``chain_match`` — dispatch. On a CUDA tensor it launches
   ``cko_chain_match`` (``csrc/segment_chain.cu``) or raises; on a CPU
   tensor it takes ``chain_match_plain``. It counts its launches in
-  ``LAUNCHES`` (one for the chain, one more for the finals columns).
+  ``LAUNCHES``: one per call, the finals columns included.
+- ``chain_plan`` — the kernel's tiles: rows per block, the columns staged,
+  the tile's layout and the shared bytes (or the global scratch where one
+  row does not fit). The kernel takes the layout as it is given.
 - ``chain_match_plain`` — the chain as plain PyTorch (log-shift passes,
   the non-class-count tables of the class gaps), the reference's algebra
   op for op.
@@ -51,11 +54,21 @@ LAUNCHES = 0
 _NCE_MATMUL_MAX_Q = 512
 
 # The kernel keeps a bitmap of up to this many 64-bit words (Q <= 192) in
-# registers; above, in a scratch of at most BITS_SCRATCH_BYTES, whose
-# columns (threads) then walk the items in turn.
+# registers; above, in its tile's state area, one column per thread.
 REG_WORDS = 3
-BITS_SCRATCH_BYTES = 64 << 20
 _THREADS = 256
+# A block's dynamic shared memory on the card (227 KB, sm_90), and the part
+# of it a tile of several rows takes: a quarter of the SM's 228 KB less the
+# 1 KB the card keeps per block, so that four blocks share an SM and their
+# conv loads overlap each other's walks. A row that fits only alone takes
+# up to SMEM_MAX; one that does not fit at all runs in a global scratch of
+# at most SCRATCH_BYTES, one slice per block. Rows are cut into at least
+# TILES_PER_SM tiles per SM where there are that many.
+SMEM_MAX = 232448
+SMEM_TILE = 233472 // 4 - 1024
+SCRATCH_BYTES = 64 << 20
+TILES_PER_SM = 4
+SMS = 132  # the H100's SMs; the wrapper reads the card's own count
 
 # Record layouts shared with csrc/segment_chain.cu.
 K_BUCKET, K_SINGLE, K_SUFFIX = 0, 1, 2
@@ -85,6 +98,10 @@ class ChainTables:
     @property
     def n_units(self) -> int:
         return int(self.host["units"].shape[0])
+
+    @property
+    def ncls(self) -> int:
+        return int(self.host["cls"].shape[0])
 
 
 def class_mask(ivs: tuple) -> np.ndarray:
@@ -418,12 +435,67 @@ def chain_match(out, data, lengths, tables: ChainTables, *, off: int, tier: bool
     return bh, suffix
 
 
-def bits_threads(items: int, nw: int) -> int:
-    """Threads of the scratch-bitmap kernel (Q > 64 * REG_WORDS): every
-    item, up to what ``BITS_SCRATCH_BYTES`` holds, a multiple of the
-    block size."""
-    cap = max(_THREADS, BITS_SCRATCH_BYTES // (8 * nw) // _THREADS * _THREADS)
-    return min(cap, (items + _THREADS - 1) // _THREADS * _THREADS)
+@dataclass(frozen=True)
+class ChainPlan:
+    """How ``cko_chain_match`` cuts a block's rows into tiles."""
+
+    rows: int  # rows per tile (block)
+    tiles: int  # row tiles: ceil(T / rows)
+    grid: int  # blocks; each walks tiles grid-stride
+    cols: int  # conv columns staged per row: every column the block's items read
+    nw: int  # 64-bit words per bitmap: ceil(Q / 64)
+    smem: int  # dynamic shared bytes per block
+    scratch_words: int  # int64 words of global scratch per block; 0 when the tile is in shared memory
+    layout: tuple[int, int, int, int]  # ``tile_layout``: suffix, class and state areas, tile words
+    at_ints: int  # shared bytes before the staged ucum and the tile's lengths (int32)
+
+    def tile_rows(self, t: int) -> list[tuple[int, int]]:
+        """(first row, rows) of each tile, in order."""
+        return [(k * self.rows, min(self.rows, t - k * self.rows)) for k in range(self.tiles)]
+
+
+def tile_layout(rows: int, nw: int, ncol: int, ns: int, ncls: int) -> tuple[int, int, int, int]:
+    """A tile of ``rows`` rows, in int64 words: where its suffix, class and
+    state areas start, and its words in all. Match words [rows, nw, ncol]
+    come first, then suffix [rows, nw, NS] and class [rows, nw, ncls]
+    words, then the state area [nw, threads] of bitmaps past REG_WORDS
+    words. ``cko_chain_match`` takes these offsets as they are."""
+    at_sfx = rows * nw * ncol
+    at_cls = at_sfx + rows * nw * ns
+    at_state = at_cls + rows * nw * ncls
+    return at_sfx, at_cls, at_state, at_state + (nw * _THREADS if nw > REG_WORDS else 0)
+
+
+def chain_plan(t: int, q: int, ncol: int, ns: int, ncls: int, n_units: int, *, sms: int = SMS) -> ChainPlan:
+    """The tiles of ``cko_chain_match`` for T rows of Q positions, ``ncol``
+    conv columns (all of them staged: with the finals tier off the finals
+    columns read the first NF, with it on the conv has none of them), NS
+    suffix columns, ``ncls`` class gaps and ``n_units`` units.
+
+    As many rows as fit in SMEM_TILE bytes share a block, but no more than
+    leave TILES_PER_SM tiles for each of ``sms`` SMs; a row that fits only
+    alone takes up to SMEM_MAX; beyond that each block holds one row in
+    its slice of a global scratch (at most SCRATCH_BYTES in all) and shared
+    memory keeps the staged unit offsets and lengths only."""
+    nw = (q + 63) // 64
+    ints = 4 * (n_units + 1)  # the staged ucum, then 4 bytes per row's length
+    empty = 8 * tile_layout(0, nw, ncol, ns, ncls)[3]
+    fixed = empty + ints
+    per_row = 8 * tile_layout(1, nw, ncol, ns, ncls)[3] - empty + 4
+    t = max(t, 1)
+    rows = min(-(-t // (TILES_PER_SM * sms)), max(0, (SMEM_TILE - fixed) // per_row))
+    if rows == 0 and fixed + per_row <= SMEM_MAX:
+        rows = 1
+    if rows:
+        tiles = -(-t // rows)
+        layout = tile_layout(rows, nw, ncol, ns, ncls)
+        return ChainPlan(rows=rows, tiles=tiles, grid=tiles, cols=ncol, nw=nw,
+                         smem=8 * layout[3] + ints + 4 * rows, scratch_words=0,
+                         layout=layout, at_ints=8 * layout[3])
+    layout = tile_layout(1, nw, ncol, ns, ncls)
+    grid = min(t, max(1, SCRATCH_BYTES // (8 * layout[3])))
+    return ChainPlan(rows=1, tiles=t, grid=grid, cols=ncol, nw=nw, smem=ints + 4,
+                     scratch_words=layout[3], layout=layout, at_ints=0)
 
 
 def launch_chain(out, data, lengths, tables: ChainTables, off: int, tier: bool):
@@ -433,31 +505,33 @@ def launch_chain(out, data, lengths, tables: ChainTables, off: int, tier: bool):
     dev = out.device
     t, ln = data.shape
     q = ln + 2
-    nw = (q + 63) // 64
     nbc, nf, ns = tables.n_bucket_cols, tables.nf, tables.ns
     ldo = nbc if tier else nbc + nf
     bh = torch.empty((t, ldo), dtype=torch.bool, device=dev)
     suffix = torch.empty((t, q, ns), dtype=torch.bool, device=dev) if tier else None
     finals = not tier and nf > 0
-    packed = torch.empty((t, ns, nw), dtype=torch.int64, device=dev) if finals else None
-    items = t * tables.members
-    g = bits_threads(items, nw) if nw > REG_WORDS and items else 0
-    bits = torch.empty((nw, g), dtype=torch.int64, device=dev) if g else None
-    launches = int(items > 0) + int(finals and t > 0)
-    if not launches:
+    if not t or not (tables.members or finals):
         return bh, suffix, 0
     o = out.contiguous()
+    if o.data_ptr() % 16:  # the kernel reads the conv output in 16-byte chunks
+        o = o.clone()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else SMS
+    plan = chain_plan(t, q, o.shape[1], ns, tables.ncls, tables.n_units, sms=sms)
+    scratch = (torch.empty(plan.grid * plan.scratch_words, dtype=torch.int64, device=dev)
+               if plan.scratch_words else None)
     d8 = (data if data.dtype == torch.uint8 else data.to(torch.uint8)).contiguous()
     lens = lengths.to(torch.int32).contiguous()
+    at_sfx, at_cls, at_state, tile_u64 = plan.layout
     p = kernels.ptr
     i = ctypes.c_int
     with kernels.on_device(dev) as stream:
         args = [
             p(o), p(d8), p(lens), p(tables.units), p(tables.ucum), p(tables.ops), p(tables.cls),
             p(tables.fin), i(t), i(ln), i(q), i(o.shape[1]), i(off), i(tables.w),
-            i(tables.n_units), i(tables.members), i(ns), i(nf), i(nbc), i(ldo), i(int(finals)),
-            i(g), p(bits), p(packed), p(suffix), p(bh), stream,
+            i(tables.n_units), i(tables.members), i(ns), i(nf), i(tables.ncls), i(nbc), i(ldo),
+            i(int(finals)), i(plan.rows), i(plan.grid), i(plan.smem), i(at_sfx), i(at_cls),
+            i(at_state), i(tile_u64), i(plan.at_ints), p(scratch), p(suffix), p(bh), stream,
         ]
         fn = kernels.function("segment_chain", "cko_chain_match")
         kernels.check(fn(*args), "segment_chain", "cko_chain_match")
-    return bh, suffix, launches
+    return bh, suffix, 1

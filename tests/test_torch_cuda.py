@@ -781,7 +781,7 @@ CHAIN_IDS = SHAPE_IDS[:3] + ["registers-3-words", "scratch", "16384"]
 def test_chain_kernel_equals_plain(card, crs_lite, b, length, tier):
     """``cko_chain_match`` gives ``chain_match_plain``'s bits on every
     crs-lite block (hit columns, and the suffix bits with the finals tier
-    on), and books one launch per call, two with the finals columns."""
+    on), and books one launch per call, the finals columns included."""
     for bi, blk in enumerate(crs_lite.model.segs):
         data, lens = _on(card, *_rows(b, length, seed=10 * bi + length))
         ins = segment.chain_inputs(blk.kernel, blk.spec, data, lens, consts=blk.consts, finals_tier=tier)
@@ -797,7 +797,67 @@ def test_chain_kernel_equals_plain(card, crs_lite, b, length, tier):
         assert (got[1] is None) == (want[1] is None) == (not t_on), bi
         if t_on:
             assert torch.equal(got[1], want[1]), bi
-        assert launched == 1 + int(not t_on and tables.nf > 0), (bi, launched)
+        assert launched == 1, (bi, launched)
+
+
+RAGGED = [(4097, 64), (37, 2048), (3, 16384)]
+
+
+@pytest.mark.parametrize("tier", [False, True], ids=["finals-off", "finals-on"])
+@pytest.mark.parametrize("b,length", RAGGED, ids=["4097x64", "37x2048", "3x16384"])
+def test_chain_kernel_ragged_tiles(card, crs_lite, b, length, tier):
+    """Row counts that end inside a tile, lengths 0 and L in one batch
+    (and one past the buffer): every crs-lite block equals its plain
+    version in one launch, through shared-memory tiles at Q = 66 and the
+    global-scratch tiles where a row does not fit (Q = 2050 for the widest
+    block, Q = 16386)."""
+    planned = set()
+    for bi, blk in enumerate(crs_lite.model.segs):
+        data, lens = _rows(b, length, seed=7 * bi + b)
+        lens[0], lens[-1] = 0, length
+        data, lens = _on(card, data, lens)
+        ins = segment.chain_inputs(blk.kernel, blk.spec, data, lens, consts=blk.consts, finals_tier=tier)
+        if ins is None:
+            continue
+        out, d, l, tables, off, t_on = ins
+        plan = segment_chain.chain_plan(b, length + 2, out.shape[1], tables.ns, tables.ncls, tables.n_units)
+        planned.add((plan.scratch_words > 0, b % plan.rows != 0))
+        before = segment_chain.LAUNCHES
+        got = segment_chain.chain_match(out, d, l, tables, off=off, tier=t_on)
+        launched = segment_chain.LAUNCHES - before
+        want = segment_chain.chain_match_plain(out, d, l, tables, off=off, tier=t_on)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), bi
+        if t_on:
+            assert torch.equal(got[1], want[1]), bi
+        assert launched == 1, (bi, launched)
+    if length == 64:
+        assert (False, True) in planned  # a shared-memory tile ends inside it
+    if length == 16384:
+        assert (True, False) in planned  # rows in the global scratch
+
+
+def test_chain_refused_shared_memory_raises(card, crs_lite, monkeypatch):
+    """A tile planned past the card's shared memory is refused at launch:
+    the wrapper raises (no zeros come back, no launch is booked), and the
+    next launch runs clean."""
+    blk = max(crs_lite.model.segs, key=lambda s: s.spec.n_seg)
+    data, lens = _on(card, *_rows(4096, 64, seed=3))
+    out, d, l, tables, off, t_on = segment.chain_inputs(blk.kernel, blk.spec, data, lens, consts=blk.consts)
+    monkeypatch.setattr(segment_chain, "SMEM_TILE", 400_000)
+    monkeypatch.setattr(segment_chain, "SMEM_MAX", 400_000)
+    monkeypatch.setattr(segment_chain, "TILES_PER_SM", 1)
+    plan = segment_chain.chain_plan(4096, 66, out.shape[1], tables.ns, tables.ncls, tables.n_units)
+    assert plan.smem > 232448 and not plan.scratch_words
+    before = segment_chain.LAUNCHES
+    with pytest.raises(RuntimeError, match="cko_chain_match: CUDA error"):
+        segment_chain.chain_match(out, d, l, tables, off=off, tier=t_on)
+    assert segment_chain.LAUNCHES == before
+    monkeypatch.undo()
+    got = segment_chain.chain_match(out, d, l, tables, off=off, tier=t_on)
+    want = segment_chain.chain_match_plain(out, d, l, tables, off=off, tier=t_on)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and segment_chain.LAUNCHES == before + 1
 
 
 def test_chain_without_its_library_raises(card, monkeypatch):

@@ -110,18 +110,17 @@ def test_finals_launches_under_the_inputs_device(record):
 
 @pytest.mark.parametrize("tier", [False, True], ids=["finals-off", "finals-on"])
 def test_chain_launches_under_the_inputs_device(record, tier):
-    # One chain launch; with the finals tier off a second for the finals
-    # columns, from the same launcher call.
+    # One chain launch, the finals columns included.
     blk = segment.build_segment_block(
         [plan_segments(parse_regex(p)) for p in (r"select\b.+\bfrom", r"a{2,4}b", r"^go.*stop$")],
         device=CPU,
     )
-    data, lens = _rows(12, 200, seed=2)  # Q = 202: the bitmaps in the scratch
+    data, lens = _rows(12, 200, seed=2)  # Q = 202: the bitmaps in the tile's state area
     out, d, l, tables, off, tier_on = segment.chain_inputs(
         blk.kernel, blk.spec, torch.as_tensor(data), torch.as_tensor(lens), finals_tier=tier)
     bh, sfx, n = segment_chain.launch_chain(out, d, l, tables, off, tier_on)
     assert tier_on == tier and tables.nf > 0
-    assert n == (1 if tier else 2)
+    assert n == 1
     assert bh.shape == (12, tables.n_bucket_cols + (0 if tier else tables.nf))
     assert (sfx is not None) == tier
     _guarded(record, "cko_chain_match", 1)

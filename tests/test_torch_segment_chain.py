@@ -2,10 +2,14 @@
 
 ``cko_chain_match`` (``csrc/segment_chain.cu``) runs only on the card.
 Here ``_Emulation`` replays its walk over the block's packed tables op for
-op — the item layout (``ucum``), 64-bit words, word shifts, the log passes
-and bit scans of ``gapany``, the sequential class walks of ``gapcls`` with
-their run counter, the packed suffix words and the finals kernel's reach
-words — and is held bit for bit against ``chain_match_plain``; the hit
+op — the items decoded tile by tile through ``chain_plan`` (``ucum``
+scaled by the tile's rows, each item exactly once), 64-bit match words
+with noise past each row's position len + 1 (which the kernel need not
+read), class bitmaps, word shifts, the log passes and bit scans of
+``gapany``, the class walks of ``gapcls`` with their run counter and word
+skip and the carry flood for unbounded gaps (each asserted equal to the
+bit walk), the suffix words and the finals columns' reach words — and is
+held bit for bit against ``chain_match_plain``; the hit
 columns, mapped to groups, are held against the JAX package's
 ``match_segment_block`` (jitted, CPU). On crs-lite's eight segment blocks
 on the block of hand-picked regex shapes and on a block of hand-made
@@ -21,6 +25,8 @@ compilation cache, and their row counts are this file's own, so no cache
 entry is read back either (jaxlib's executable serialization crashes on
 some large XLA:CPU programs; ``tests/conftest.py`` forks around writes).
 """
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -70,6 +76,52 @@ def _range_word(w, lo, hi):
     return np.where(b0 <= b1, m, U64(0))
 
 
+_BREV8 = np.asarray([int(f"{i:08b}"[::-1], 2) for i in range(256)], dtype=np.uint8)
+
+
+def _brev(x):
+    """``__brevll`` per item."""
+    return _BREV8[np.ascontiguousarray(x, dtype=U64).view(np.uint8).reshape(-1, 8)[:, ::-1]].copy().view(U64)[:, 0]
+
+
+def _run_after(c, bend, run, up):
+    """``run_after_up`` / ``run_after_down`` of the kernel, per item."""
+    m64 = (1 << 64) - 1
+    out = []
+    for ci, ri in zip(c.tolist(), run.tolist()):
+        if up:
+            v = ~((ci << (64 - bend)) & m64) & m64
+            ones = 64 - v.bit_length()  # __clzll
+        else:
+            v = ~ci & m64
+            ones = (v & -v).bit_length() - 1 if v else 64  # __ffsll - 1
+        out.append(ri + bend if ones >= bend else ones)
+    return np.asarray(out, dtype=np.int64)
+
+
+def _tile_items(plan, units, ucum, t):
+    """Per unit (rows, members) of its items, decoded tile by tile as the
+    kernel does (a tile of rt rows holds rt * M items, unit by unit: rows,
+    then members); checks that every (row, member) comes once."""
+    ucum = ucum.astype(np.int64)
+    m = int(ucum[-1])
+    nb_of = units[:, 3].astype(np.int64)
+    seen = np.zeros(t * m, dtype=np.int64)
+    per_unit = [([], []) for _ in range(len(units))]
+    for t0, rt in plan.tile_rows(t):
+        g = np.arange(rt * m)
+        u = np.searchsorted(rt * ucum, g, side="right") - 1
+        local = g - rt * ucum[u]
+        rr, j = local // nb_of[u], local % nb_of[u]
+        np.add.at(seen, (t0 + rr) * m + ucum[u] + j, 1)
+        for k in np.unique(u):
+            per_unit[k][0].append(t0 + rr[u == k])
+            per_unit[k][1].append(j[u == k])
+    assert np.array_equal(seen, np.ones(t * m)), "an item is missed or run twice"
+    return [(np.concatenate(r) if r else np.zeros(0, np.int64), np.concatenate(j) if j else np.zeros(0, np.int64))
+            for r, j in per_unit]
+
+
 class _Emulation:
     """numpy replay of ``cko_chain_match`` on one block's operands."""
 
@@ -81,10 +133,22 @@ class _Emulation:
         self.off, self.tier = off, tier
         bits = np.zeros(out.shape[:2] + (self.nw * 64,), dtype=bool)
         bits[:, :, : self.q] = out >= 2 * tables.w
+        # The kernel may skip the conv elements past a row's position
+        # len + 1 (no chain reads them): noise there.
+        past = np.arange(self.nw * 64)[None, None, :] > lens.astype(np.int64)[:, None, None] + 1
+        noise = np.random.default_rng(7).random(past.shape[:1] + (out.shape[1], self.nw * 64)) < 0.5
+        bits = np.where(past, noise, bits)
         self.mw = np.packbits(bits.reshape(*out.shape[:2], self.nw, 64), axis=-1,
                               bitorder="little").view("<u8")[..., 0]  # [T, ncol, nw]
         self.dpad = np.zeros((self.t, self.q), dtype=np.int64)
         self.dpad[:, 1 : self.l + 1] = data
+        # Class bitmaps [T, ncls, nw]: bit p is dpad[p] in the class (0 past Q).
+        cls_bits = np.zeros((self.t, len(self.h["cls"]), self.nw * 64), dtype=bool)
+        for c, mask in enumerate(self.h["cls"]):
+            b = self.dpad
+            cls_bits[:, c, : self.q] = (mask[b >> 6] >> (b & 63).astype(U64)) & U64(1) != 0
+        self.cw = np.packbits(cls_bits.reshape(self.t, -1, self.nw, 64), axis=-1,
+                              bitorder="little").view("<u8")[..., 0]
         self.len1 = lens.astype(np.int64) + 1
         self.nbc, self.nf, self.ns = tables.n_bucket_cols, tables.nf, tables.ns
 
@@ -159,25 +223,62 @@ class _Emulation:
             shift(e, width - span, True)
         shift(e, lo)
 
-    def walk(self, e, lo, hi, mask, up, rows):
-        b = self.dpad[rows]  # [n, Q]
-        in_c = (mask[b >> 6] >> (b & 63).astype(U64)) & U64(1) != 0
+    def flood(self, e, cls, up, rows):
+        """The kernel's word-parallel gapcls for lo = 0 and no bound."""
+        cw = self.cw[rows, cls]
+        k = np.zeros(e.shape[0], dtype=U64)
+        out = np.zeros_like(e)
+        with np.errstate(over="ignore"):
+            for w in (range(self.nw) if up else range(self.nw - 1, -1, -1)):
+                if up:
+                    x, m = e[:, w], cw[:, w]
+                else:
+                    x = _brev(e[:, w])
+                    below = cw[:, w - 1] >> U64(63) if w > 0 else np.zeros_like(k)
+                    m = (_brev(cw[:, w]) >> U64(1)) | (below << U64(63))
+                s1 = (x & m) + m
+                s2 = s1 + k
+                f = (s2 ^ m) | x | k
+                out[:, w] = f if up else _brev(f)
+                k = ((s1 < m) | (s2 < s1)).astype(U64)
+        if up:
+            out[:, -1] &= _range_word(self.nw - 1, 0, self.q - 1)
+        return out
+
+    def walk(self, e, lo, hi, cls, up, rows):
+        fast = self.flood(e.copy(), cls, up, rows) if lo == 0 and hi < 0 else None
+        self.walk_bits(e, lo, hi, cls, up, rows)
+        if fast is not None:  # the flood gives the walk's bits
+            np.testing.assert_array_equal(fast, e)
+
+    def walk_bits(self, e, lo, hi, cls, up, rows):
+        cw = self.cw[rows, cls]  # [n, nw]
         hmax = UNBOUNDED if hi < 0 else hi
         n = e.shape[0]
         near, run = np.full(n, NONE, dtype=np.int64), np.zeros(n, dtype=np.int64)
+        dead = np.ones(n, dtype=bool)
+        carry = np.zeros(n, dtype=U64)
         (self.shift_up if up else self.shift_down)(e, lo)
         for w in (range(self.nw) if up else range(self.nw - 1, -1, -1)):
             x, o = e[:, w].copy(), np.zeros(n, dtype=U64)
             bend = min(64, self.q - 64 * w)
+            c = cw[:, w]
+            if up:  # bit b: dpad[64 w + b - 1] in C
+                c, carry = (c << U64(1)) | carry, c >> U64(63)
+            cbits = (c[:, None] >> np.arange(64, dtype=U64)) & U64(1) != 0  # [n, 64]
+            # A word with no set bit after a dead position: only the run moves.
+            skip = (x == 0) & dead
+            run_skip = _run_after(c, bend, run, up)
             for bit in (range(bend) if up else range(bend - 1, -1, -1)):
                 p = 64 * w + bit
-                if up and p > 0:
-                    run = np.where(in_c[:, p - 1], run + 1, 0)
-                if not up:
-                    run = np.where(in_c[:, p], run + 1, 0)
+                run = np.where(cbits[:, bit], run + 1, 0)
                 near = np.where((x >> U64(bit)) & U64(1) != 0, p, near)
                 d = lo + p - near if up else lo + near - p
                 o |= ((near != NONE) & (d <= hmax) & (d <= run)).astype(U64) << U64(bit)
+            d = lo + 64 * w + bend - 1 - near if up else lo + near - 64 * w
+            # The skip is exact: the bit walk gives no bit and the same run there.
+            assert not o[skip].any() and (run[skip] == run_skip[skip]).all()
+            dead = np.where(skip, dead, (near == NONE) | (d > hmax) | (d > run))
             e[:, w] = o
 
     # -- the two kernels -------------------------------------------------------
@@ -187,12 +288,9 @@ class _Emulation:
         bh = np.zeros((t, ldo), dtype=bool)
         sfx = np.zeros((t, self.q, self.ns), dtype=bool)
         packed = np.zeros((t, self.ns, self.nw), dtype=U64)
-        # Items unit by unit, rows then members: the kernel's search of ucum.
-        g = np.arange(t * int(h["ucum"][-1]))
-        unit_of = np.searchsorted(t * h["ucum"].astype(np.int64), g, side="right") - 1
+        items = _tile_items(self.plan(), h["units"], h["ucum"], t)
         for u, (kind, a_start, a_end, nb, op0, n_ops, oc, sc) in enumerate(h["units"].tolist()):
-            local = g[unit_of == u] - t * int(h["ucum"][u])
-            rows, j = local // nb, local % nb
+            rows, j = items[u]
             len1 = self.len1[rows]
             n = rows.size
             if kind == tchain.K_SINGLE:
@@ -219,7 +317,7 @@ class _Emulation:
                 elif typ == tchain.OP_GAPANY:
                     self.spread(e, p1, p2, up)
                 else:
-                    self.walk(e, p1, p2, h["cls"][p3], up, rows)
+                    self.walk(e, p1, p2, p3, up, rows)
             if up:
                 lo = len1 if a_end else np.zeros(n, dtype=np.int64)
                 bh[rows, oc + j] = np.any([e[:, w] & _range_word(w, lo, len1) for w in range(self.nw)],
@@ -232,9 +330,24 @@ class _Emulation:
             self.finals(bh, packed)
         return bh, (sfx if self.tier else None)
 
+    def plan(self):
+        """The kernel's plan, cut to tiles of at most 5 rows so that the
+        rows here span several tiles and end inside one."""
+        plan = tchain.chain_plan(self.t, self.q, self.mw.shape[1], self.ns, len(self.h["cls"]),
+                                 len(self.h["units"]))
+        rows = min(5, plan.rows)
+        return dataclasses.replace(plan, rows=rows, tiles=-(-self.t // rows))
+
     def finals(self, bh, packed):
         t, nf = self.t, self.nf
-        rows, f = np.repeat(np.arange(t), nf), np.tile(np.arange(nf), t)
+        # Per tile, one item per (row, finals column).
+        rows, f = [], []
+        for t0, rt in self.plan().tile_rows(t):
+            g = np.arange(rt * nf)
+            rows.append(t0 + g // nf)
+            f.append(g % nf)
+        rows, f = np.concatenate(rows), np.concatenate(f)
+        assert np.array_equal(np.bincount(rows * nf + f, minlength=t * nf), np.ones(t * nf))
         sc, nl, nr, a_start = (self.h["fin"][f, i].astype(np.int64) for i in range(4))
         len1 = self.len1[rows]
         plo = np.maximum(1 - nl, 0)
@@ -434,3 +547,58 @@ def test_second_call_builds_nothing_on_the_device(monkeypatch):
     assert built == []
     assert tb.consts[torch.device("cpu")] is dc
     np.testing.assert_array_equal(again.numpy(), first.numpy())
+
+
+def _columns_read(tables, off):
+    """Conv columns (after ``off``) that the block's items read: each seg
+    op's column per member and, with the finals columns in the launch,
+    column f of finals column f."""
+    h, cols = tables.host, []
+    for kind, _a_st, _a_end, nb, op0, n_ops, _oc, _sc in h["units"].tolist():
+        for typ, _p1, _p2, p3 in h["ops"][op0 : op0 + n_ops].tolist():
+            if typ == tchain.OP_SEG:
+                cols.extend(range(p3 - off, p3 - off + nb))
+    if not off:
+        cols.extend(range(tables.nf))
+    return np.asarray(cols, dtype=np.int64)
+
+
+@pytest.mark.parametrize("q", [66, 130, 2050, 16386])
+def test_chain_plan_fits_and_covers_every_item(crs_lite_blocks, q):
+    """Every crs-lite block at every tier width plans within a block's
+    shared memory (227 KB) or in a global scratch of at most 64 MiB, stages
+    every column its items read, and its tiles run every (row, member) item
+    and every (row, finals column) exactly once, the last tile ending
+    inside it; up to Q = 130 every block's tile is in shared memory."""
+    _, tsegs = crs_lite_blocks
+    for tb in tsegs:
+        prog = tseg._program(tb.spec)
+        tables = tchain.chain_tables(prog, w=tb.spec.w, device="cpu")
+        h = tables.host
+        for tier in (False, True):
+            off = tables.nf if tier else 0
+            ncol = len(prog.col_order) - off
+            read = _columns_read(tables, off)
+            for t in (1, 7, 301, 12288):
+                plan = tchain.chain_plan(t, q, ncol, tables.ns, tables.ncls, tables.n_units)
+                assert plan.smem <= tchain.SMEM_MAX, (q, t, plan)
+                assert plan.cols == ncol and (read.size == 0 or (read.min() >= 0 and read.max() < ncol))
+                assert plan.tiles == -(-t // plan.rows) and 1 <= plan.grid <= plan.tiles
+                # The kernel indexes each area of the tile by rows, words and
+                # columns: the layout gives each that room, in order.
+                rw = plan.rows * plan.nw
+                at_sfx, at_cls, at_state, words = plan.layout
+                assert (at_sfx, at_cls - at_sfx, at_state - at_cls) == (rw * ncol, rw * tables.ns,
+                                                                        rw * tables.ncls)
+                assert words - at_state == (plan.nw * 256 if plan.nw > tchain.REG_WORDS else 0)
+                if plan.scratch_words:
+                    assert plan.rows == 1 and plan.scratch_words == words and plan.at_ints == 0
+                    assert 8 * plan.scratch_words * plan.grid <= max(tchain.SCRATCH_BYTES, 8 * plan.scratch_words)
+                else:
+                    assert plan.at_ints == 8 * words
+                assert plan.smem == plan.at_ints + 4 * (tables.n_units + 1 + plan.rows)
+                assert plan.scratch_words == 0 or q > 130, (q, plan)
+                tiles = plan.tile_rows(t)
+                assert [r0 for r0, _ in tiles] == list(range(0, t, plan.rows)) and sum(r for _, r in tiles) == t
+                if t <= 301:
+                    _tile_items(plan, h["units"], h["ucum"], t)
