@@ -248,7 +248,7 @@ def eager_stages():
     call on the instance."""
     from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
 
-    EXEC_CACHE.call = lambda fn, args, statics, dyn: fn(*args, **statics, **dyn)
+    EXEC_CACHE.call = lambda fn, args, statics, dyn, *_timer: fn(*args, **statics, **dyn)
     try:
         yield
     finally:
@@ -279,7 +279,7 @@ def timed_window(engine, submit, mods, eager: bool) -> dict:
         got = engine.collect(inflight)
     wall = time.perf_counter() - t0
     split = {"assemble": inflight.assemble_s, **inflight.stage_s,
-             "read_back": inflight.device_s, "decode": inflight.decode_s}
+             "read_back": inflight.readback_s, "decode": inflight.decode_s}
     return {"wall": wall, "split": split, "launches": {k: m.LAUNCHES for k, m in mods.items()},
             "cache": cache_delta(s0, EXEC_CACHE.stats()),
             "verdicts": [(v.interrupted, v.status, v.rule_id, v.matched_ids, v.scores) for v in got]}

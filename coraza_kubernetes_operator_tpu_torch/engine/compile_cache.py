@@ -51,6 +51,13 @@ them with no Python and one launch from the host.
 5. **Launch counts**: a capture books no kernel launch (it runs none);
    it records what it launched, and each replay books that record
    (``ops/kernels.py``), so a window counts the same launches either way.
+   **Timing**: ``call``'s ``timer``, a context manager, wraps the
+   stage's device work as the host issues it in one go: a first sight's,
+   a capture's or a bypass's eager run, or a replay's graph launch (the
+   engine's records a CUDA event on either side). A replay launches its
+   graph through the driver API with the GIL held
+   (``utils/device.py::STAGE_EVENTS``), from the executable handle read
+   at capture.
 6. **Persistent artefacts** (:func:`configure_persistent_cache`): the
    directory that the ``nvcc`` kernel libraries and the native runtime
    are built into, from ``CKO_COMPILE_CACHE_DIR``, so a cold *process*
@@ -63,6 +70,7 @@ copy-in, so the copy-in, copy-out and counting run in the CPU tests.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
@@ -79,6 +87,7 @@ from ..models.waf_model import WafModel, eval_post_tiered, match_tier_packed
 from ..ops import kernels
 from ..ops.segment import finals_tier_requested
 from ..utils import get_logger
+from ..utils.device import STAGE_EVENTS
 
 log = get_logger("engine.compile_cache")
 
@@ -230,13 +239,17 @@ class _Entry:
         self.out_tree = None  # the stage's return value over self.outputs
         self.launches: dict = {}  # kernel launches one replay makes
         self.bypass: str | None = None  # why this key stays eager
+        self.exec_handle: int | None = None  # the graph's executable (on the card)
 
     def drop(self) -> None:
         self.graph, self.inputs, self.outputs, self.out_tree = None, [], [], None
-        self.launches = {}
+        self.launches, self.exec_handle = {}, None
 
 
 _HOST = "host"  # an entry "captured" on the CPU: replays rerun the stage
+
+
+_UNTIMED = contextlib.nullcontext()  # ``call``'s timer when nothing is timed
 
 
 class _Table:
@@ -345,36 +358,42 @@ class ExecutableCache:
 
     # -- core -----------------------------------------------------------------
 
-    def call(self, fn, args: tuple, statics: dict, dyn: dict):
+    def call(self, fn, args: tuple, statics: dict, dyn: dict, timer=_UNTIMED):
         """``fn(*args, **statics, **dyn)`` through the key's entry on
         ``args[0]``: eager at first sight, captured at the second, replayed
         after. Hits count only after a replay; a key that cannot be
-        captured runs eagerly, counted in ``bypasses``."""
+        captured runs eagerly, counted in ``bypasses``. ``timer`` wraps
+        the call's device work (module docstring, 5)."""
         key = self.key_for(fn, args, statics, dyn)
         table = self._table(args[0])
         entry, first = table.lookup(key, _label(fn, args))
         if first:
             with self._lock:
                 self.misses += 1
-            return fn(*args, **statics, **dyn)
+            with timer:
+                return fn(*args, **statics, **dyn)
         out = None  # stays None when the key is known to stay eager
         with entry.lock:
             if entry.bypass is None and entry.graph is not None:
                 with table.replay_lock:
-                    out = self._replay(entry, fn, args, statics, dyn)
+                    out = self._replay(entry, fn, args, statics, dyn, timer)
                 with self._lock:
                     self.hits += 1
                 return out
             if entry.bypass is None:
                 # Second sight. When the capture fails, its eager run
                 # has served this call all the same.
-                out = self._mint(entry, table, key, fn, args, statics, dyn)
+                with timer:
+                    out = self._mint(entry, table, key, fn, args, statics, dyn)
             bypass = entry.bypass
         if bypass is None:
             table.trim()
             return out
         self._count_bypass(key, bypass, entry.label)
-        return fn(*args, **statics, **dyn) if out is None else out
+        if out is not None:
+            return out
+        with timer:
+            return fn(*args, **statics, **dyn)
 
     def warm(self, fn, args: tuple, statics: dict, dyn: dict) -> bool:
         """Capture the key's graph without serving a window (the eager run
@@ -467,6 +486,8 @@ class ExecutableCache:
 
     def _keep(self, entry, graph, inputs, s_out, rec, trace_s, compile_s) -> None:
         entry.graph, entry.inputs, entry.out_tree = graph, inputs, s_out
+        if graph is not _HOST:
+            entry.exec_handle = graph.raw_cuda_graph_exec()
         entry.outputs = _leaves(s_out, [])
         entry.launches = dict(rec)
         with self._lock:
@@ -486,18 +507,22 @@ class ExecutableCache:
         s_args = _rebuild(args, it)
         return s_args, {**dyn, "cached": _rebuild(dyn.get("cached"), it)} if "cached" in dyn else dyn
 
-    def _replay(self, entry: _Entry, fn, args, statics, dyn):
+    def _replay(self, entry: _Entry, fn, args, statics, dyn, timer=_UNTIMED):
         leaves = _leaves(dyn.get("cached"), _leaves(args, []))
         for s, a in zip(entry.inputs, leaves):
             s.copy_(a)
         if entry.graph is _HOST:
             s_args, s_dyn = self._over(entry.inputs, args, dyn)
-            with kernels.record_launches():  # booked from the record below
+            with kernels.record_launches(), timer:  # booked from the record below
                 new = fn(*s_args, **statics, **s_dyn)
             for o, n in zip(entry.outputs, _leaves(new, [])):
                 o.copy_(n)
         else:
-            entry.graph.replay()
+            dev = entry.inputs[0].device
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                with timer:
+                    STAGE_EVENTS.launch(entry.exec_handle, stream)
         kernels.book_record(entry.launches)
         return _rebuild(entry.out_tree, iter([o.clone() for o in entry.outputs]))
 

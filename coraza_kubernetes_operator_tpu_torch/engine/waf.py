@@ -26,6 +26,12 @@ Port of ``coraza_kubernetes_operator_tpu/engine/waf.py``. One window is
    window's sync point), fill the value cache, decode the verdicts and
    release the window's arena lease.
 
+Each window carries its stage spans on the host's monotonic clock
+(``InFlightBatch.spans``) and, on the card, a pair of CUDA events around
+each stage, read in ``collect`` once the read-back has waited and put on
+the same clock (``InFlightBatch.device``). The batcher commits both to the
+window log (``observability/tracing.py``).
+
 The host twins (``host_fallback``, ``_host_tier_hits``, ``_host_post``)
 give the same verdicts without the device. Shapes are bucketed exactly
 as the reference buckets them, so a window tiers into the same rows and
@@ -47,7 +53,7 @@ from ..compiler.ruleset import CompiledRuleSet, compile_rules
 from ..compiler.transforms_host import apply_pipeline
 from ..models.waf_model import WafModel, build_model, matched_id_lists, unpack_compact
 from ..utils import get_logger
-from ..utils.device import resolve_device
+from ..utils.device import STAGE_EVENTS, resolve_device
 from .request import Extraction, HttpRequest, TargetExtractor
 
 log = get_logger("engine.waf")
@@ -319,22 +325,58 @@ class InFlightBatch:
     # over-limit rows stay in the batch and their verdicts are displaced
     # by the 413 / phase-1 outcome, as prepare's row exclusion gives).
     overrides: dict[int, Verdict] | None = None
-    # Stage timings: host_s and assemble_s (blob -> dispatch-ready
-    # tensors) by prepare; device_s / decode_s by collect. stage_s: host
-    # seconds of _dispatch_tiers's steps (copy_in, match, confirm, post),
-    # read from the host clock with no wait of its own (the confirm reads
-    # the match stages' rows back, so it holds their device time).
+    # host_s: prepare's wall seconds. spans: (name, t0, t1) on
+    # time.monotonic(), in order: assemble (blob -> dispatch-ready tensors)
+    # by prepare; copy_in, match_dispatch, confirm_wait / confirm_search
+    # (one pair per device tier: the read-back of its match rows, then the
+    # exact search), post_dispatch by _dispatch_tiers; readback_wait and
+    # decode by collect. events: (stage, start, end, host time the start
+    # was recorded) CUDA events on the card, read by collect into device:
+    # (stage, t0, t1) on the same clock, slack_s the distance between the
+    # two bounds that placed them (_device_intervals).
     host_s: float = 0.0
-    device_s: float = 0.0
-    decode_s: float = 0.0
-    assemble_s: float = 0.0
-    stage_s: dict = field(default_factory=dict)
+    spans: list = field(default_factory=list)
+    events: list | None = None
+    device: list = field(default_factory=list)
+    slack_s: float | None = None
     # Staging-arena lease behind the window's tier arrays (tiered native
     # path), released by collect. Nothing reads the arena buffers after
     # prepare returns: on the card the host-to-device copies are
     # synchronous (pageable numpy through torch.as_tensor), and on the CPU
     # every stage has run by then.
     arena_lease: object = None
+
+    def span_s(self, *names: str) -> float:
+        """Seconds in the spans named ``names``."""
+        return sum(t1 - t0 for name, t0, t1 in self.spans if name in names)
+
+    @property
+    def assemble_s(self) -> float:
+        return self.span_s("assemble")
+
+    @property
+    def stage_s(self) -> dict:
+        """Host seconds of _dispatch_tiers's steps: the confirm holds the
+        read-back of the match stages' rows (their device time) and the
+        exact search."""
+        return {"copy_in": self.span_s("copy_in"), "match": self.span_s("match_dispatch"),
+                "confirm": self.span_s("confirm_wait", "confirm_search"),
+                "post": self.span_s("post_dispatch")}
+
+    @property
+    def readback_s(self) -> float:
+        """The host's wait in the final read-back."""
+        return self.span_s("readback_wait")
+
+    @property
+    def decode_s(self) -> float:
+        return self.span_s("decode")
+
+    @property
+    def device_s(self) -> float | None:
+        """Event-measured device seconds over the window's stages; None
+        off the card."""
+        return sum(t1 - t0 for _s, t0, t1 in self.device) if self.device else None
 
 
 class RequestTensorizer:
@@ -531,12 +573,10 @@ class WafEngine:
         # Distinct stage keys (EXEC_CACHE) this engine has dispatched
         # (cko_exec_signatures / CompileReport.exec_signatures).
         self._exec_signatures: set = set()
-        # Per-tier stage timing (CKO_TIER_TIMING=1): label -> recent wall
-        # seconds per dispatch. Each timed stage waits for the device, so
-        # it is a bench/debug knob; /waf/v1/stats shows the p50s under the
-        # automata block.
-        self._tier_timing_on = _os.environ.get("CKO_TIER_TIMING", "0") == "1"
-        self.tier_timing: dict[str, list[float]] = {}
+        # Stage label -> event-measured device seconds of its last 512
+        # windows (on the card; _device_intervals), for automata_summary's
+        # tier_p50_ms.
+        self._stage_device_s: dict[str, deque] = {}
         self._finals_logged = False
         if self.compiled.report.skipped:
             log.info(
@@ -628,7 +668,7 @@ class WafEngine:
     def prepare(self, requests: list[HttpRequest]) -> InFlightBatch:
         """Stage 1: extract + tensorize + tier on the host, then enqueue
         the matcher and post stages on the device."""
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         prog = self.compiled.program
         rejected: dict[int, Verdict] = {}
         if prog.request_body_access and prog.request_body_limit_action == "Reject":
@@ -654,17 +694,17 @@ class WafEngine:
         if not live:
             return InFlightBatch(
                 out=None, n_live=0, n_requests=len(requests), rejected=rejected,
-                miss_keys=None, cache_pop=False, host_s=time.perf_counter() - t0,
+                miss_keys=None, cache_pop=False, host_s=time.monotonic() - t0,
             )
         tiers, numvals, masks, cached, mkeys, lease = self._batch_tensors(live)
-        t_assemble = time.perf_counter() - t0
+        t_assemble = time.monotonic()
         inflight = self._dispatch_leased(
             lease, tiers, numvals, len(live), masks=masks, cached=cached, miss_keys=mkeys
         )
-        inflight.assemble_s = t_assemble
+        inflight.spans.insert(0, ("assemble", t0, t_assemble))
         inflight.n_requests = len(requests)
         inflight.rejected = rejected
-        inflight.host_s = time.perf_counter() - t0
+        inflight.host_s = time.monotonic() - t0
         return inflight
 
     def prepare_blob(self, blob, n_req: int) -> InFlightBatch:
@@ -687,7 +727,7 @@ class WafEngine:
         marker = poison_marker()
         if marker is not None and marker in blob:
             raise DeviceFault("injected poison request (CKO_FAULT_POISON_MARKER)")
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         prog = self.compiled.program
         overrides: dict[int, Verdict] = {}
         if prog.request_body_access and prog.request_body_limit_action == "Reject":
@@ -714,14 +754,14 @@ class WafEngine:
         else:
             tensors = self._native.tensorize_blob(blob, n_req)
             tiers, numvals, masks, cached, mkeys = self.tier_cached(tensors)
-        t_assemble = time.perf_counter() - t0
-        self._record_assemble(t_assemble)
+        t_assemble = time.monotonic()
+        self._record_assemble(t_assemble - t0)
         inflight = self._dispatch_leased(
             lease, tiers, numvals, n_req, masks=masks, cached=cached, miss_keys=mkeys
         )
-        inflight.assemble_s = t_assemble
+        inflight.spans.insert(0, ("assemble", t0, t_assemble))
         inflight.overrides = overrides or None
-        inflight.host_s = time.perf_counter() - t0
+        inflight.host_s = time.monotonic() - t0
         return inflight
 
     def _dispatch_leased(self, lease, *args, **kwargs) -> InFlightBatch:
@@ -755,21 +795,23 @@ class WafEngine:
         hang = injected_device_hang_s()
         if hang > 0:
             time.sleep(hang)
-        t0 = time.perf_counter()
+        t0 = time.monotonic()
         if inflight.cache_pop:
             packed_t, tier_hits = inflight.out
             packed = _numpy(packed_t)
+            t_rb = time.monotonic()
             if self.value_cache is not None and inflight.miss_keys is not None:
                 for keys, hp in zip(inflight.miss_keys, tier_hits):
                     if keys:
                         self.value_cache.insert(keys, _numpy(hp)[: len(keys)])
         else:
             packed = _numpy(inflight.out)
+            t_rb = time.monotonic()
         self.warmed = True
-        t1 = time.perf_counter()
-        inflight.device_s = t1 - t0
         verdicts = self._decode_packed(packed, inflight.n_live)
-        inflight.decode_s = time.perf_counter() - t1
+        inflight.spans += [("readback_wait", t0, t_rb), ("decode", t_rb, time.monotonic())]
+        if inflight.events:
+            self._device_intervals(inflight, t_rb)
         if inflight.overrides:
             for i, v in inflight.overrides.items():
                 if 0 <= i < len(verdicts):
@@ -822,19 +864,27 @@ class WafEngine:
                 finals_columns=sum(cols),
             )
         *match, post = stage_specs(self.model, tiers, numvals, masks, cached, max_phase)
-        t0 = time.perf_counter()
+        # On the card each stage's device work is bracketed by two CUDA
+        # events on the stream it runs on, outside its graph; collect reads
+        # them after its read-back (_device_intervals).
+        events = [] if self.device.type == "cuda" else None
+        stream = torch.cuda.current_stream(self.device).cuda_stream if events is not None else 0
+        t0 = time.monotonic()
         match = [(label, fn, _put(args, self.device), st) for label, fn, args, st, _dyn in match]
         _label, post_fn, (_m, _hits, pairs, numvals_t), post_st, post_dyn = _put(post, self.device)
-        t1 = time.perf_counter()
-        tier_hits = tuple(self._stage(label, fn, args, st, {}) for label, fn, args, st in match)
-        t2 = time.perf_counter()
-        if self.model.prefilter_cols:
-            tier_hits = self._confirm_prefilter(tier_hits, tiers, (True,) * len(tiers))
-        t3 = time.perf_counter()
-        packed = self._stage(
-            "post", post_fn, (self.model, tier_hits, pairs, numvals_t), post_st, post_dyn
+        t1 = time.monotonic()
+        tier_hits = tuple(
+            self._stage(label, fn, args, st, {}, events, stream) for label, fn, args, st in match
         )
-        t4 = time.perf_counter()
+        spans = [("copy_in", t0, t1), ("match_dispatch", t1, time.monotonic())]
+        if self.model.prefilter_cols:
+            tier_hits = self._confirm_prefilter(tier_hits, tiers, (True,) * len(tiers), spans)
+        t3 = spans[-1][2]
+        packed = self._stage(
+            "post", post_fn, (self.model, tier_hits, pairs, numvals_t), post_st, post_dyn,
+            events, stream,
+        )
+        spans.append(("post_dispatch", t3, time.monotonic()))
         return InFlightBatch(
             out=(packed, tier_hits) if cached is not None else packed,
             n_live=n_requests,
@@ -842,39 +892,58 @@ class WafEngine:
             rejected={},
             miss_keys=miss_keys,
             cache_pop=cached is not None,
-            stage_s={"copy_in": t1 - t0, "match": t2 - t1, "confirm": t3 - t2, "post": t4 - t3},
+            spans=spans,
+            events=events,
         )
 
-    def _stage(self, label: str, fn, args: tuple, statics: dict, dyn: dict):
-        """``EXEC_CACHE.call(fn, args, statics, dyn)``, wall-timed per stage
-        label when ``CKO_TIER_TIMING=1``. On the card the timing records a
-        CUDA event after the stage and waits for it, so the time covers the
-        stage's device work (and costs the overlap with the next host
-        step): a bench/debug knob, never the serving default."""
+    def _stage(self, label: str, fn, args: tuple, statics: dict, dyn: dict, events=None,
+               stream: int = 0):
+        """``EXEC_CACHE.call(fn, args, statics, dyn)``; with ``events`` (on
+        the card) the stage's device work, as the host issues it in one go
+        (a replay's graph launch, an eager run), is bracketed by two events
+        on ``stream`` (``_StageTimer``). Recording waits for nothing."""
         from .compile_cache import EXEC_CACHE
 
         key = EXEC_CACHE.key_for(fn, args, statics, dyn)
         with self._prefilter_lock:
             self._exec_signatures.add(key)
             self.compiled.report.exec_signatures = len(self._exec_signatures)
-        if not self._tier_timing_on:
+        if events is None:
             return EXEC_CACHE.call(fn, args, statics, dyn)
-        t0 = time.perf_counter()
-        out = EXEC_CACHE.call(fn, args, statics, dyn)
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            # CKO_TIER_TIMING=1 only: the knob times each stage's device work.
-            done.synchronize()  # torchlint: ignore[CKO-J004]
-        dt = time.perf_counter() - t0
-        with self._prefilter_lock:
-            buf = self.tier_timing.setdefault(label, [])
-            buf.append(dt)
-            if len(buf) > 512:
-                del buf[: len(buf) - 512]
-        return out
+        return EXEC_CACHE.call(fn, args, statics, dyn, _StageTimer(label, events, stream))
 
-    def _confirm_prefilter(self, tier_hits, tiers, from_device):
+    def _device_intervals(self, inflight: InFlightBatch, t_rb: float) -> None:
+        """Put the window's stage events on the host clock, into
+        ``inflight.device``. Runs after the final read-back returned (at
+        ``t_rb``): every event is complete, so reading them waits for
+        nothing. The events give each interval relative to the first; one
+        offset per window places them. No event ran before the host
+        recorded it (a lower bound on the offset) and the last ran before
+        the read-back returned (an upper bound). The offset is the lower
+        bound, exact to the launch latency whenever the card was idle when
+        some stage's start was recorded, as it mostly is; where the bounds
+        cross (clock noise) it is the upper. ``slack_s`` keeps upper -
+        lower. Each stage's device seconds also feed ``tier_p50_ms``."""
+        events, inflight.events = inflight.events, None
+        try:
+            ref = events[0][1]
+            rel = [(label, STAGE_EVENTS.elapsed_s(ref, e0), STAGE_EVENTS.elapsed_s(ref, e1), t_rec)
+                   for label, e0, e1, t_rec in events]
+        except (OSError, RuntimeError) as err:  # an event never ran: no intervals
+            log.error("stage events unreadable", err)
+            return
+        finally:
+            STAGE_EVENTS.release([e for _label, e0, e1, _t in events for e in (e0, e1)])
+        lower = max(t_rec - r0 for _label, r0, _r1, t_rec in rel)
+        upper = t_rb - max(r1 for _label, _r0, r1, _t in rel)
+        off = min(lower, upper)
+        inflight.slack_s = upper - lower
+        inflight.device = [(label, off + r0, off + r1) for label, r0, r1, _t in rel]
+        with self._prefilter_lock:
+            for label, r0, r1, _t in rel:
+                self._stage_device_s.setdefault(label, deque(maxlen=512)).append(r1 - r0)
+
+    def _confirm_prefilter(self, tier_hits, tiers, from_device, spans=None):
         """Confirm device prefilter positives against the exact DFAs.
 
         The pre-bank columns (``model.prefilter_cols``: (device column,
@@ -884,17 +953,21 @@ class WafEngine:
         clear the bit unless it confirms. Patched tiers go back to the
         device re-packed; the value cache then stores exact bits. Entries
         whose ``from_device`` is False (host-twin rows) are exact already
-        and pass through."""
+        and pass through. With ``spans`` (ending where the confirm starts)
+        each device tier appends its ``confirm_wait`` (the read of its rows)
+        and ``confirm_search`` (the exact re-check), end to end."""
         g = int(self.model.e_lg.shape[0])
         cols = self.model.prefilter_cols
         n_rows = n_hits = n_confirms = 0
         out = list(tier_hits)
+        t = spans[-1][2] if spans else 0.0
         for ti, (hp, tier, on_dev) in enumerate(zip(tier_hits, tiers, from_device)):
             if not on_dev:
                 continue
             # The confirm's one read: the exact re-check runs on the host, as
             # in the reference (its engine/waf.py:1143-1166).
             hits = np.unpackbits(_numpy(hp), axis=1, count=g).astype(bool)  # torchlint: ignore[CKO-J004]
+            t_read = time.monotonic()
             n_rows += hits.shape[0] * len(cols)
             d, lg, vd, vl = tier[0], tier[1], tier[6], tier[7]
             val_cache: dict[tuple[int, int], bytes] = {}
@@ -924,6 +997,10 @@ class WafEngine:
                         changed = True
             if changed:
                 out[ti] = torch.as_tensor(np.packbits(hits, axis=1), device=self.device)
+            if spans is not None:
+                t_end = time.monotonic()
+                spans += [("confirm_wait", t, t_read), ("confirm_search", t_read, t_end)]
+                t = t_end
         if n_rows:
             with self._prefilter_lock:
                 self.prefilter_stats["rows"] += n_rows
@@ -936,15 +1013,15 @@ class WafEngine:
         """Automata-tier composition and prefilter counters for stats and
         metrics: which groups run where (the plan's verdict), how many
         device banks each tier produced, how the prefilter's
-        over-approximation pays off, and per-stage p50s under
-        ``CKO_TIER_TIMING=1``."""
+        over-approximation pays off, and on the card each stage's p50
+        event-measured device time over its last 512 windows."""
         plan = self.automata_plan
         counts = plan.counts()
         with self._prefilter_lock:
             pstats = dict(self.prefilter_stats)
             timing = {
                 label: sorted(buf)[len(buf) // 2] * 1000.0
-                for label, buf in self.tier_timing.items()
+                for label, buf in self._stage_device_s.items()
                 if buf
             }
         summary = {
@@ -1193,6 +1270,33 @@ class WafEngine:
 
 def _numpy(t) -> np.ndarray:
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+class _StageTimer:
+    """``EXEC_CACHE.call``'s timer for one stage on the card: a pooled
+    driver-API event (``utils/device.py::STAGE_EVENTS``, which keeps the
+    GIL) recorded on ``stream`` just before the stage's device work (an
+    eager run, or a replay's graph launch) and one just after; then
+    ``(label, start, end, host time the start was recorded)`` goes to
+    ``events``. A failing event call raises, as a failing stage does."""
+
+    __slots__ = ("label", "events", "stream", "t_rec", "start")
+
+    def __init__(self, label: str, events: list, stream: int):
+        self.label, self.events, self.stream = label, events, stream
+        self.t_rec, self.start = 0.0, None
+
+    def __enter__(self):
+        self.t_rec = time.monotonic()
+        self.start = STAGE_EVENTS.record(self.stream)
+        return self
+
+    def __exit__(self, exc_type, *exc):
+        if exc_type is not None:
+            STAGE_EVENTS.release([self.start])
+            return False
+        self.events.append((self.label, self.start, STAGE_EVENTS.record(self.stream), self.t_rec))
+        return False
 
 
 def _put(x, dev):

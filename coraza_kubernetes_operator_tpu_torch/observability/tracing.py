@@ -12,6 +12,18 @@ quarantine hit, watchdog abandon).  Completed contexts are committed to
 a bounded ring buffer and exported as Chrome trace-event JSON
 (loadable in Perfetto / ``chrome://tracing``) via ``GET /waf/v1/trace``.
 
+Beside the sampled per-request records runs the **window log**
+(``WINDOWS``), always on at window granularity: one record per batcher
+window with its measured stage spans on the host's monotonic clock (the
+engine's assemble, dispatches, the prefilter confirm's read-back wait and
+exact search apart, the final read-back wait and decode), the sums of its
+requests' ext_proc worker-pool and batcher waits, and on the card each
+stage's device interval, timed by CUDA events and put on the same clock.
+A traced request's pipeline spans are copied from its window's record and
+name the window's id; the Chrome export draws the windows and the device
+intervals as two more tracks on the requests' timeline. ``README.md``
+beside this module describes both for operators.
+
 Design constraints, in order:
 
 - **Zero hot-path cost when off.**  ``CKO_TRACE_SAMPLE_RATE=0`` (the
@@ -34,22 +46,29 @@ Knobs (env, read at recorder construction):
   without a ``traceparent`` header is traced; requests carrying the
   header are always recorded when the rate is > 0.
 - ``CKO_TRACE_RING`` (default 512): max completed traces retained.
+
+The window log keeps the last ``WINDOW_RING`` windows and has no knob.
 """
 
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import random
 import threading
 import time
+from collections import deque
 
 DEFAULT_RING = 512
+WINDOW_RING = 4096
 
 # Chrome trace-event "threads" — one lane per pipeline layer so Perfetto
-# renders the hand-offs as a swimlane diagram.
-TRACKS = {"frontend": 1, "pipeline": 2, "device": 3, "degraded": 4}
+# renders the hand-offs as a swimlane diagram. "window" and "card" carry
+# the window log: each window's stage spans, and its stages' device
+# intervals.
+TRACKS = {"frontend": 1, "pipeline": 2, "device": 3, "degraded": 4, "window": 5, "card": 6}
 
 # The full promoted-path span chain, in pipeline order.  Tests and the
 # trace smoke assert exported traces against this.
@@ -152,7 +171,6 @@ class SpanContext:
         "path",
         "events",
         "t_accept",
-        "t_submit",
         "committed",
     )
 
@@ -173,7 +191,6 @@ class SpanContext:
         self.path = "promoted"
         self.events: list[tuple[str, float, float, str, dict | None]] = []
         self.t_accept = time.monotonic() if t_accept is None else t_accept
-        self.t_submit = 0.0
         self.committed = False
 
     def event(
@@ -199,8 +216,96 @@ class SpanContext:
     def response_traceparent(self) -> str:
         return format_traceparent(self.trace_id, self.span_id, self.flags)
 
-    def span_names(self) -> list[str]:
-        return [e[0] for e in self.events]
+
+class WindowRecord:
+    """One batcher window on the window log.
+
+    ``t`` is when the batcher closed the window and ``t_done`` when its
+    futures had all resolved, both ``time.monotonic()``. ``spans`` are
+    ``(name, t0, t1)`` on that clock, each a part of this window (id
+    ``id``): ``assemble``, ``copy_in``, ``match_dispatch``, the confirm's
+    ``confirm_wait`` / ``confirm_search`` pieces (one pair per length
+    tier), ``post_dispatch``, ``readback_wait``, ``decode``.
+    ``extproc_wait_s`` and ``batch_wait_s`` sum its requests' waits for an
+    ext_proc worker and from submit to ``t``. ``device`` holds ``(stage,
+    t0, t1)``, each stage's device interval from CUDA events, on the card
+    only; ``slack_s`` is how far apart the two bounds that placed them on
+    the host clock were (``engine/waf.py::_device_intervals``)."""
+
+    __slots__ = (
+        "id", "t", "t_done", "n_requests", "extproc_wait_s", "batch_wait_s",
+        "spans", "device", "slack_s",
+    )
+
+    def __init__(self, wid: int, t: float, n_requests: int = 0,
+                 extproc_wait_s: float = 0.0, batch_wait_s: float = 0.0):
+        self.id = wid
+        self.t = t
+        self.t_done = t
+        self.n_requests = n_requests
+        self.extproc_wait_s = extproc_wait_s
+        self.batch_wait_s = batch_wait_s
+        self.spans: list[tuple[str, float, float]] = []
+        self.device: list[tuple[str, float, float]] = []
+        self.slack_s: float | None = None
+
+
+class WindowLog:
+    """Bounded ring of committed :class:`WindowRecord` s, oldest evicted
+    first. The batcher opens a record when it closes a window and commits
+    it once the window's futures have resolved."""
+
+    def __init__(self, capacity: int = WINDOW_RING):
+        self.capacity = max(1, int(capacity))
+        self._ring: "deque[WindowRecord]" = deque(maxlen=self.capacity)
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+
+    def open(self, t: float, n_requests: int = 0, extproc_wait_s: float = 0.0,
+             batch_wait_s: float = 0.0) -> WindowRecord:
+        return WindowRecord(next(self._ids), t, n_requests, extproc_wait_s, batch_wait_s)
+
+    def commit(self, rec: WindowRecord) -> None:
+        with self._lock:
+            self._ring.append(rec)
+
+    def records(self, t0: float | None = None, t1: float | None = None) -> list:
+        """Committed records, oldest first, with ``t0 <= t < t1`` where given."""
+        with self._lock:
+            recs = list(self._ring)
+        return [r for r in recs if (t0 is None or r.t >= t0) and (t1 is None or r.t < t1)]
+
+    def chrome_events(self, mono0: float, ids=None) -> list[dict]:
+        """The records (those in ``ids`` when given) as Chrome trace events:
+        a ``window`` span and its stage spans on the window track, its
+        device intervals on the card track, each naming the window. The
+        window's args carry its waits and, on the card, ``device_slack_ms``:
+        how far its device intervals could lie from where they are drawn."""
+
+        def ev(name, t0, t1, track, args):
+            return {"name": name, "ph": "X", "ts": max(0.0, (t0 - mono0) * 1e6),
+                    "dur": max(0.0, (t1 - t0) * 1e6), "pid": 1, "tid": TRACKS[track],
+                    "args": args}
+
+        out: list[dict] = []
+        for r in self.records():
+            if ids is not None and r.id not in ids:
+                continue
+            args = {"window": r.id, "requests": r.n_requests,
+                    "extproc_wait_ms": r.extproc_wait_s * 1e3,
+                    "batch_wait_ms": r.batch_wait_s * 1e3}
+            if r.slack_s is not None:
+                args["device_slack_ms"] = r.slack_s * 1e3
+            out.append(ev("window", r.t, r.t_done, "window", args))
+            for name, t0, t1 in r.spans:
+                out.append(ev(name, t0, t1, "window", {"window": r.id}))
+            for stage, t0, t1 in r.device:
+                out.append(ev(stage, t0, t1, "card", {"window": r.id}))
+        return out
+
+
+# The process's window log (one per process, as EXEC_CACHE is).
+WINDOWS = WindowLog()
 
 
 class TraceRecorder:
@@ -218,8 +323,6 @@ class TraceRecorder:
         self.capacity = max(1, int(capacity))
         self.sample_rate = min(1.0, max(0.0, float(sample_rate)))
         self._lock = threading.Lock()
-        from collections import deque
-
         self._ring: "deque[dict]" = deque(maxlen=self.capacity)
         # Monotonic→wall pairing captured once so exports carry stable
         # absolute timestamps regardless of when they are rendered.
@@ -278,9 +381,6 @@ class TraceRecorder:
 
     # -- export ------------------------------------------------------------
 
-    def _unix(self, t_mono: float) -> float:
-        return self._wall0 + (t_mono - self._mono0)
-
     def snapshot(self, trace_id: str | None = None) -> list[dict]:
         with self._lock:
             records = list(self._ring)
@@ -291,7 +391,10 @@ class TraceRecorder:
     def chrome_trace(self, trace_id: str | None = None) -> dict:
         """Render the ring (optionally one trace) as Chrome trace-event
         JSON — the ``{"traceEvents": [...]}`` object format Perfetto
-        and chrome://tracing load directly."""
+        and chrome://tracing load directly — with the window log's records
+        (for one trace, the windows its requests rode) on the same
+        timeline. ``ts`` counts from ``otherData.mono0`` (monotonic
+        seconds), which ``otherData.wall0`` gives as unix seconds."""
         records = self.snapshot(trace_id)
         events: list[dict] = [
             {
@@ -313,6 +416,7 @@ class TraceRecorder:
                 }
             )
         mono0 = self._mono0
+        ids: set | None = None if trace_id is None else set()
         for rec in records:
             base_args = {
                 "trace_id": rec["trace_id"],
@@ -325,6 +429,8 @@ class TraceRecorder:
                 args = dict(base_args)
                 if extra:
                     args.update(extra)
+                    if ids is not None and "window" in extra:
+                        ids.add(extra["window"])
                 events.append(
                     {
                         "name": name,
@@ -336,6 +442,7 @@ class TraceRecorder:
                         "args": args,
                     }
                 )
+        events += WINDOWS.chrome_events(mono0, ids)
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
@@ -344,6 +451,8 @@ class TraceRecorder:
                 "writes": self.writes,
                 "dropped": self.dropped,
                 "sample_rate": self.sample_rate,
+                "mono0": mono0,
+                "wall0": self._wall0,
             },
         }
 

@@ -36,6 +36,13 @@ round-robin ``_FairQueue`` over per-tenant buckets: at batch-assembly
 time tenants are served in proportion to their configured weights
 (``CKO_TENANT_WEIGHTS``, default equal), so one noisy tenant cannot
 monopolize window slots even before admission control starts shedding.
+
+**Window log.** Every window the dispatch stage closes gets a record on
+the process's window log (``observability/tracing.py::WINDOWS``): the
+sums of its requests' waits (for an ext_proc worker, and from ``submit``
+to the window's close), the engine's measured stage spans, the card's
+per-stage device intervals, and the time its futures resolved. The
+collector commits it; a traced request's pipeline spans are copied from it.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from dataclasses import dataclass, field
 
 from ..engine.request import HttpRequest
 from ..engine.waf import Verdict, WafEngine
+from ..observability.tracing import WINDOWS, WindowRecord
 from ..utils import get_logger
 from .quarantine import fingerprint
 
@@ -268,8 +276,9 @@ class BatcherStats:
     errors: int = 0
     batch_sizes: list[int] = field(default_factory=list)
     step_latencies_s: list[float] = field(default_factory=list)
-    # Pipelined stage samples: host assemble (tensorize+tier+dispatch
-    # enqueue) vs device step (readback block + decode) per window group.
+    # Pipelined stage samples per window group: host assemble (tensorize +
+    # tier + dispatch enqueue) and, on the card, the stages' event-measured
+    # device time.
     host_stage_s: list[float] = field(default_factory=list)
     device_stage_s: list[float] = field(default_factory=list)
     on_batch: object = None  # optional (size, latency_s, trace_id) hook for metrics
@@ -288,13 +297,16 @@ class BatcherStats:
             self.on_batch(size, latency_s, trace_id)  # type: ignore[operator]
 
     def record_stage(
-        self, host_s: float, device_s: float, trace_id: str | None = None
+        self, host_s: float, device_s: float | None, trace_id: str | None = None
     ) -> None:
-        if len(self.host_stage_s) >= self._max_samples:
-            del self.host_stage_s[: self._max_samples // 2]
-            del self.device_stage_s[: self._max_samples // 2]
-        self.host_stage_s.append(host_s)
-        self.device_stage_s.append(device_s)
+        """``device_s``: the window's event-measured device seconds, None
+        off the card (then only the host sample is kept)."""
+        for samples, value in ((self.host_stage_s, host_s), (self.device_stage_s, device_s)):
+            if value is None:
+                continue
+            if len(samples) >= self._max_samples:
+                del samples[: self._max_samples // 2]
+            samples.append(value)
         if self.on_stage is not None:
             self.on_stage(host_s, device_s, trace_id)  # type: ignore[operator]
 
@@ -374,11 +386,15 @@ class _BlobWindow:
     # Priority lane the assembling frontend classified this window into
     # (per-lane accounting must survive the queue round-trip).
     lane: str = LANE_BULK
+    # submit_window's time: the start of the window's batcher wait.
+    t_submit: float = 0.0
 
 
 @dataclass
 class _WindowRecord:
-    window: object  # list of (req, tenant, fut, span) items, or a _BlobWindow
+    # list of (req, tenant, fut, span, no_cache, t_submit, extproc_wait_s)
+    # items, or a _BlobWindow
+    window: object
     groups: list
     # Dispatch-stage entry time (after assembly + the depth-semaphore
     # backpressure wait): the boundary between a traced request's
@@ -391,6 +407,8 @@ class _WindowRecord:
     # Lane that dispatched this window: the collector releases the SAME
     # lane's depth slot.
     lane: str = LANE_BULK
+    # The window's record on the window log, committed by the collector.
+    log: WindowRecord | None = None
 
 
 @dataclass
@@ -761,7 +779,7 @@ class MicroBatcher:
             _resolve(bw.fut.set_exception, EngineUnavailable("batcher stopped"))
 
     def _drain_triple(self, item) -> None:
-        req, tenant, fut, span, _no_cache = item
+        req, tenant, fut, span = item[:4]
         if fut.cancelled():
             return
         if span is not None:
@@ -781,6 +799,7 @@ class MicroBatcher:
         span=None,
         lane: str | None = None,
         no_cache: bool = False,
+        extproc_wait_s: float = 0.0,
     ) -> Future:
         """Enqueue one request; the Future resolves to its Verdict.
         ``span`` is an optional flight-recorder SpanContext; the collect
@@ -789,13 +808,15 @@ class MicroBatcher:
         classified by body presence (bodied → bulk). ``no_cache`` keeps
         the row off the verdict cache entirely (the server marks
         deadline-header requests — their rescue/cancel dance must see
-        the unmodified device path)."""
+        the unmodified device path). ``extproc_wait_s`` is how long the
+        request's messages waited for an ext_proc worker before this
+        call; it and the submit time go to the window log."""
         fut: Future = Future()
-        if span is not None:
-            span.t_submit = time.monotonic()
         if lane is None:
             lane = classify_lane(request)
-        self._queues[lane].put((request, tenant, fut, span, no_cache))
+        self._queues[lane].put(
+            (request, tenant, fut, span, no_cache, time.monotonic(), extproc_wait_s)
+        )
         return fut
 
     def submit_window(
@@ -816,7 +837,8 @@ class MicroBatcher:
             self._blob_pending[lane] += n_req
             self._blob_pending_bytes[lane] += len(blob)
         self._queues[lane].put(
-            _BlobWindow(blob=blob, n_req=n_req, fut=fut, spans=spans, lane=lane)
+            _BlobWindow(blob=blob, n_req=n_req, fut=fut, spans=spans, lane=lane,
+                        t_submit=time.monotonic())
         )
         return fut
 
@@ -957,6 +979,10 @@ class MicroBatcher:
                 self._inflight_count -= 1
             gate.release()
             raise
+        try:
+            record.log = _open_log(record)
+        except Exception as err:  # the window log must never decide a verdict
+            log.error("window log open failed", err)
         self._inflight.put(record)
 
     def _dispatch_window(
@@ -995,7 +1021,7 @@ class MicroBatcher:
         # tenant-manager lock); memoizing also pins one engine per tenant
         # for the whole window even if a hot reload lands mid-grouping.
         tenant_cache: dict[str | None, WafEngine | None] = {}
-        for idx, (_req, tenant, _fut, _span, _no_cache) in enumerate(window):
+        for idx, (_req, tenant, _fut, _span, _no_cache, *_waits) in enumerate(window):
             if _fut.cancelled():
                 # Deadline-missed request already answered by the host
                 # fallback — don't spend a device slot on it.
@@ -1273,6 +1299,7 @@ class MicroBatcher:
                 return
             try:
                 self._collect_record(record)
+                self._commit_log(record)
             except Exception as err:
                 # Backstop: anything escaping per-group handling must
                 # not kill the collector — queued windows would never
@@ -1420,34 +1447,69 @@ class MicroBatcher:
 
     def _trace_group(self, record: _WindowRecord, g: _Group, spans: tuple) -> None:
         """Stamp the pipeline span chain (queue -> assemble -> dispatch
-        -> readback -> decode) onto a collected group's traced requests.
-        Must run BEFORE the group's futures resolve — the frontend
-        commits the flight record when its future lands. Sync groups
-        (stub engines, phase-split) have no stage timings; their device
-        spans degenerate to zero length but the chain stays complete."""
+        -> readback -> decode) onto a collected group's traced requests,
+        copied from the window's measured spans, each naming the window:
+        queue from the request's submit (in a blob window, its accept) to
+        the window's close, the engine's assemble, dispatch (copy-in to
+        the post stage's dispatch, the prefilter confirm included), the
+        final read-back's wait, the decode. Must run BEFORE the group's
+        futures resolve — the frontend commits the flight record when its
+        future lands. Sync groups (stub engines, phase-split) measure no
+        stage; their spans are zero-length at the collect and the chain
+        stays complete."""
         try:
             t_end = time.monotonic()
-            inflight = g.inflight
-            host_s = getattr(inflight, "host_s", 0.0) if inflight is not None else 0.0
-            device_s = getattr(inflight, "device_s", 0.0) if inflight is not None else 0.0
-            decode_s = getattr(inflight, "decode_s", 0.0) if inflight is not None else 0.0
             t_win = record.t_win or g.t_dispatch
-            t_disp = g.t_dispatch
-            t_host1 = min(t_end, t_disp + host_s)
-            t_rb0 = max(t_host1, t_end - device_s - decode_s)
-            t_rb1 = max(t_rb0, t_end - decode_s)
+            measured = g.inflight.spans if g.inflight is not None else ()
+
+            def span_of(*names):
+                ivs = [(t0, t1) for name, t0, t1 in measured if name in names]
+                if not ivs:
+                    return t_end, t_end
+                return min(t0 for t0, _ in ivs), max(t1 for _, t1 in ivs)
+
+            chain = (
+                ("assemble", span_of("assemble"), "pipeline"),
+                ("dispatch", span_of("copy_in", "match_dispatch", "confirm_wait",
+                                     "confirm_search", "post_dispatch"), "pipeline"),
+                ("readback", span_of("readback_wait"), "device"),
+                ("decode", span_of("decode"), "device"),
+            )
             n = len(g.idxs) if g.idxs else getattr(record.window, "n_req", 0)
+            wid = record.log.id if record.log is not None else None
+            submits = {}
+            if not isinstance(record.window, _BlobWindow):
+                submits = {id(it[3]): it[5] for it in record.window if it[3] is not None}
             for span in spans:
-                t_sub = span.t_submit or span.t_accept
-                span.event("queue", min(t_sub, t_win), t_win, track="pipeline")
-                span.event(
-                    "assemble", t_win, t_disp, track="pipeline", args={"window": n}
-                )
-                span.event("dispatch", t_disp, t_host1, track="pipeline")
-                span.event("readback", t_rb0, t_rb1, track="device")
-                span.event("decode", t_rb1, t_end, track="device")
+                t_sub = submits.get(id(span), span.t_accept)
+                span.event("queue", min(t_sub, t_win), t_win, track="pipeline",
+                           args={"window": wid})
+                for name, (t0, t1), track in chain:
+                    span.event(name, t0, t1, track=track,
+                               args={"window": wid, "requests": n} if name == "assemble"
+                               else {"window": wid})
         except Exception as err:  # tracing must never decide a verdict
             log.error("flight recorder stamp failed", err)
+
+    def _commit_log(self, record: _WindowRecord) -> None:
+        """Commit the window's record to the window log, its futures
+        resolved: the engine groups' measured spans and device intervals."""
+        rec = record.log
+        if rec is None:
+            return
+        try:
+            rec.t_done = time.monotonic()
+            for g in record.groups:
+                inf = g.inflight
+                if inf is None:
+                    continue
+                rec.spans += inf.spans
+                rec.device += inf.device
+                if inf.slack_s is not None:
+                    rec.slack_s = max(inf.slack_s, rec.slack_s or inf.slack_s)
+            WINDOWS.commit(rec)
+        except Exception as err:  # the window log must never decide a verdict
+            log.error("window log commit failed", err)
 
     def _trace_degraded(
         self, record: _WindowRecord, g: _Group, path: str, name: str
@@ -1602,12 +1664,7 @@ class MicroBatcher:
                 )
                 inflight = g.inflight
                 if inflight is not None:
-                    self.stats.record_stage(
-                        getattr(inflight, "host_s", 0.0),
-                        getattr(inflight, "device_s", 0.0)
-                        + getattr(inflight, "decode_s", 0.0),
-                        trace_id,
-                    )
+                    self.stats.record_stage(inflight.host_s, inflight.device_s, trace_id)
             except Exception as err:  # metrics hooks must not fail verdicts
                 log.error("batch stats hook failed", err)
             if spans:
@@ -1622,9 +1679,7 @@ class MicroBatcher:
             if self.on_window is not None:
                 inflight = g.inflight
                 serving_s = (
-                    getattr(inflight, "host_s", 0.0)
-                    + getattr(inflight, "device_s", 0.0)
-                    + getattr(inflight, "decode_s", 0.0)
+                    inflight.host_s + inflight.readback_s + inflight.decode_s
                     if inflight is not None
                     else time.monotonic() - g.t_dispatch
                 )
@@ -1669,9 +1724,7 @@ class MicroBatcher:
         trace_id = spans[0].trace_id if spans else None
         inflight = g.inflight
         serving_s = (
-            getattr(inflight, "host_s", 0.0)
-            + getattr(inflight, "device_s", 0.0)
-            + getattr(inflight, "decode_s", 0.0)
+            inflight.host_s + inflight.readback_s + inflight.decode_s
             if inflight is not None
             else time.monotonic() - g.t_dispatch
         )
@@ -1680,12 +1733,7 @@ class MicroBatcher:
         try:
             self.stats.record(bw.n_req, time.monotonic() - g.t_dispatch, trace_id)
             if inflight is not None:
-                self.stats.record_stage(
-                    getattr(inflight, "host_s", 0.0),
-                    getattr(inflight, "device_s", 0.0)
-                    + getattr(inflight, "decode_s", 0.0),
-                    trace_id,
-                )
+                self.stats.record_stage(inflight.host_s, inflight.device_s, trace_id)
         except Exception as err:  # metrics hooks must not fail verdicts
             log.error("batch stats hook failed", err)
         if spans:
@@ -1781,6 +1829,18 @@ class MicroBatcher:
             hook(*args)
         except Exception as err:
             log.error("batcher hook failed", err)
+
+
+def _open_log(record: _WindowRecord) -> WindowRecord:
+    """The dispatched window's record on the window log: its requests and
+    the sums of their ext_proc-worker and batcher waits (to the window's
+    close)."""
+    t, w = record.t_win, record.window
+    if isinstance(w, _BlobWindow):
+        return WINDOWS.open(t, w.n_req, 0.0, w.n_req * max(0.0, t - w.t_submit))
+    return WINDOWS.open(
+        t, len(w), sum(it[6] for it in w), sum(max(0.0, t - it[5]) for it in w)
+    )
 
 
 def _blob_requests_fn(bw: _BlobWindow):

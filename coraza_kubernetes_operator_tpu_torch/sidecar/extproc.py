@@ -771,7 +771,7 @@ class _ExtStream:
 
     __slots__ = (
         "peer", "t_open", "headers", "body", "charged", "done",
-        "await_body", "deadline", "ctx", "tenant",
+        "await_body", "deadline", "ctx", "tenant", "pool_wait_s",
     )
 
     def __init__(self, peer: str, t_open: float):
@@ -785,6 +785,9 @@ class _ExtStream:
         self.deadline: Optional[float] = None
         self.ctx = None
         self.tenant: Optional[str] = None
+        # Seconds this stream's messages waited for a frontend worker
+        # (native transport), carried to the batcher's window log.
+        self.pool_wait_s = 0.0
 
 
 class ExtProcEngine:
@@ -1027,7 +1030,8 @@ class ExtProcEngine:
             ctx.event("accept", t_accept, t_accept, track="frontend")
             ctx.event("parse", t_accept, _time.monotonic(), track="frontend")
         status, payload, headers = sc.filter_reply(
-            req, tenant=tenant, deadline_s=deadline_s, span=ctx, lane=lane
+            req, tenant=tenant, deadline_s=deadline_s, span=ctx, lane=lane,
+            extproc_wait_s=st.pool_wait_s,
         )
         if ctx is not None:
             headers = {**(headers or {}), "traceparent": ctx.response_traceparent()}
@@ -1063,7 +1067,8 @@ DEADLINE_HEADER_LOWER = "x-cko-deadline-ms"
 
 class _NativeStream:
     __slots__ = ("ext", "header_buf", "grpc_buf", "headers_sent",
-                 "closed", "inbox", "busy", "unknown", "half_closed")
+                 "closed", "inbox", "busy", "unknown", "half_closed",
+                 "t_queued")
 
     def __init__(self):
         self.ext: Optional[_ExtStream] = None
@@ -1075,6 +1080,7 @@ class _NativeStream:
         self.busy = False
         self.unknown = False
         self.half_closed = False
+        self.t_queued = 0.0  # when the stream was last handed to the pool
 
 
 class _NativeConn:
@@ -1314,11 +1320,15 @@ class _NativeConn:
                 ns.busy = True
                 dispatch = True
         if dispatch:
+            ns.t_queued = _time.monotonic()
             self.frontend.pool.submit(self._process_stream, stream_id, ns)
 
     def _process_stream(self, stream_id: int, ns: _NativeStream) -> None:
         """Worker: drain the stream inbox in order (evaluation blocks on
-        the batcher, so this never runs on the reader thread)."""
+        the batcher, so this never runs on the reader thread). The time
+        since the stream was handed to the pool is its wait for a worker."""
+        if ns.ext is not None:
+            ns.ext.pool_wait_s += _time.monotonic() - ns.t_queued
         try:
             while True:
                 with self.ilock:

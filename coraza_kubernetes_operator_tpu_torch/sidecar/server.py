@@ -835,7 +835,7 @@ class TpuEngineSidecar:
         )
         self._m_device_stage = self.metrics.histogram(
             "cko_device_stage_s",
-            "Device stage per window group (readback block + decode)",
+            "Device time per window group on the card (CUDA events around each stage)",
         )
         self.batcher.stats.on_stage = self._on_stage
         # -- native window pipeline + staging arena (docs/NATIVE.md) --------
@@ -1546,10 +1546,11 @@ class TpuEngineSidecar:
             pass
 
     def _on_stage(
-        self, host_s: float, device_s: float, trace_id: str | None = None
+        self, host_s: float, device_s: float | None, trace_id: str | None = None
     ) -> None:
         self._m_host_stage.observe(host_s, exemplar=trace_id)
-        self._m_device_stage.observe(device_s, exemplar=trace_id)
+        if device_s is not None:
+            self._m_device_stage.observe(device_s, exemplar=trace_id)
 
     def record_verdict(
         self, request: HttpRequest, verdict: Verdict, tenant: str | None = None
@@ -2032,16 +2033,20 @@ class TpuEngineSidecar:
         deadline_s: float | None = None,
         span=None,
         lane: str | None = None,
+        extproc_wait_s: float = 0.0,
     ) -> tuple[int, bytes, dict]:
         """Filter mode, end to end: evaluate the inbound request and map
         the verdict (or degraded-mode exception) to the wire reply.
         ``span`` is an optional flight-recorder context; degraded exits
         tag it so an exported trace names the branch taken. ``lane``
         pins the priority lane (ext_proc classifies at the protocol
-        level); None auto-classifies from the request body."""
+        level); None auto-classifies from the request body.
+        ``extproc_wait_s``: the request's wait for an ext_proc worker,
+        for the window log."""
         try:
             verdict = self.evaluate(
-                req, tenant=tenant, deadline_s=deadline_s, span=span, lane=lane
+                req, tenant=tenant, deadline_s=deadline_s, span=span, lane=lane,
+                extproc_wait_s=extproc_wait_s,
             )
         except Overloaded as err:
             self._span_degraded(span, "shed", "shed")
@@ -2267,6 +2272,7 @@ class TpuEngineSidecar:
         deadline_s: float | None = None,
         span=None,
         lane: str | None = None,
+        extproc_wait_s: float = 0.0,
     ) -> Verdict:
         engine = self.tenants.engine_for(tenant)
         if engine is None:
@@ -2288,6 +2294,7 @@ class TpuEngineSidecar:
             span=span,
             lane=lane,
             no_cache=deadline_s is not None,
+            extproc_wait_s=extproc_wait_s,
         )
         try:
             return fut.result(timeout=timeout)

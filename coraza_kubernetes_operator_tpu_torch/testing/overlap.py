@@ -44,9 +44,10 @@ def measure_overlap(eng, batches, depth: int = 2) -> dict:
 
     Returns ``{sync_wall, pipe_wall, host_s, device_s, decode_s,
     sync_verdicts, pipe_verdicts, compile_cache}``: walls in seconds,
-    stage totals from the sync pass's ``InFlightBatch`` timings (the
-    overlap target the pipelined wall should approach is
-    max(host, device+decode)), per-pass verdict lists in submission
+    stage totals from the sync pass's ``InFlightBatch`` timings
+    (``device_s`` is the host's wait in each final read-back; the overlap
+    target the pipelined wall should approach is max(host,
+    device+decode)), per-pass verdict lists in submission
     order (bit-identical is the pipelining invariant), and the
     EXEC_CACHE ``{hits, misses}`` delta across the two timed passes
     (misses must be 0 — a mid-measurement compile voids the numbers).
@@ -68,7 +69,7 @@ def measure_overlap(eng, batches, depth: int = 2) -> dict:
             inf = eng.prepare(reqs)
             sync_verdicts.append(eng.collect(inf))
             host += inf.host_s
-            device += inf.device_s
+            device += inf.readback_s
             decode += inf.decode_s
         sync_wall = time.perf_counter() - t0
 

@@ -341,7 +341,8 @@ def test_package_is_clean():
 def test_package_hot_paths_resolve_and_are_walked(monkeypatch):
     """The declared hot paths exist in the port's engine, and the walk
     reaches the prefilter confirm's read: without its suppression the
-    package is not clean."""
+    package is not clean. The stage executables' wrapper, which records
+    CUDA events around each stage, holds no host sync even unsuppressed."""
     import ast
 
     waf = torchlint.PACKAGE_ROOT / "engine" / "waf.py"
@@ -353,7 +354,8 @@ def test_package_hot_paths_resolve_and_are_walked(monkeypatch):
     bare = source.replace("# torchlint: ignore[CKO-J004]", "")
     details = {f.detail for f in torchlint.lint_source("engine/waf.py", bare)}
     assert "in _numpy(), reached from _dispatch_tiers() -> _confirm_prefilter()" in details
-    assert "in _stage(), reached from _dispatch_tiers()" in details
+    assert "in _numpy(), reached from _dispatch_tiers() -> _stage()" not in details
+    assert not [d for d in details if "in _stage()" in d], details
 
 
 # ---------------------------------------------------------------------------

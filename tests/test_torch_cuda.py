@@ -25,7 +25,8 @@ stage that cannot be captured is a bypass and leaves the card serving
 right; windows prepared by two lanes on one engine and collected by
 two more threads keep their bits while another thread captures;
 ``reinit_device`` releases the old
-model's graphs. Every test skips
+model's graphs. A window's stage events lie inside its host span and add
+no host sync. Every test skips
 where there is no card. This file imports no
 JAX, so it also runs on the card's machine, without the JAX package's
 conftest::
@@ -657,7 +658,7 @@ def test_pipelined_windows_beside_captures_keep_their_bits(card, crs_lite):
     windows = [synthetic_requests(128, attack_ratio=0.3, seed=500 + i) for i in range(6)]
     ref = WafEngine(crs_lite.compiled)
     ref.value_cache = None
-    EXEC_CACHE.call = lambda fn, args, statics, dyn: fn(*args, **statics, **dyn)
+    EXEC_CACHE.call = lambda fn, args, statics, dyn, *_timer: fn(*args, **statics, **dyn)
     try:
         want = [[vkey(v) for v in ref.evaluate(w)] for w in windows]
     finally:
@@ -737,6 +738,52 @@ def test_a_stage_that_cannot_be_captured_is_a_bypass_and_the_next_window_is_righ
         got = [(v.interrupted, v.status, v.rule_id) for v in eng.evaluate(reqs)]
     on_cpu = WafEngine(SMALL_RULES, device="cpu").evaluate(reqs)
     assert got == [(v.interrupted, v.status, v.rule_id) for v in on_cpu]
+
+
+def test_window_stage_events_lie_inside_the_host_span(card, monkeypatch):
+    """The CUDA events around each stage of a window, put on the host
+    clock by ``collect``, lie in stage order inside the window's host
+    span (its assemble's start to its final read-back's return), and a
+    replayed window with them notes the same host syncs as without them."""
+    from coraza_kubernetes_operator_tpu_torch.engine import waf
+    from coraza_kubernetes_operator_tpu_torch.ops import kernels
+
+    rules = SMALL_RULES + 'SecRule ARGS "@rx (a|bc)*a(a|bc){7}d" "id:2002,phase:2,deny,status:403,t:none"\n'
+    reqs = [HttpRequest(method=m, uri=u, headers=h, body=b) for m, u, h, b in REQUESTS]
+    reqs += [HttpRequest(uri="/?q=aaaaaaaad"), HttpRequest(uri="/?q=bcbcbcbcd")]
+    eng = WafEngine(rules)
+    for _ in range(3):  # eager, captured, replayed
+        inflight = eng.prepare(reqs)
+        got = eng.collect(inflight)
+    lo = inflight.spans[0][1]
+    hi = next(t1 for name, _t0, t1 in inflight.spans if name == "readback_wait")
+    stages = [s for s, _t0, _t1 in inflight.device]
+    assert stages[0].startswith("match:") and stages[-1] == "post", stages
+    assert all(lo <= t0 <= t1 <= hi for _s, t0, t1 in inflight.device), (lo, hi, inflight.device)
+    starts = [t0 for _s, t0, _t1 in inflight.device]
+    assert starts == sorted(starts)
+    # the bounds cannot cross by more than the events' resolution (0.5 us)
+    # and the two clocks' rates over a window
+    assert inflight.slack_s is not None and inflight.slack_s > -1e-4, inflight.slack_s
+    assert inflight.device_s > 0 and eng.automata_summary()["tier_p50_ms"]["post"] > 0
+    on_cpu = WafEngine(rules, device="cpu").evaluate(reqs)
+    assert [(v.interrupted, v.status, v.rule_id) for v in got] == [
+        (v.interrupted, v.status, v.rule_id) for v in on_cpu]
+
+    def syncs_of_a_window():
+        with kernels.watch_host_syncs() as syncs:
+            eng.collect(eng.prepare(reqs))
+        return list(syncs)
+
+    with_events = syncs_of_a_window()
+
+    timed = waf.WafEngine._stage
+
+    def untimed(self, label, fn, args, statics, dyn, events=None, stream=0):
+        return timed(self, label, fn, args, statics, dyn)
+
+    monkeypatch.setattr(waf.WafEngine, "_stage", untimed)
+    assert with_events == syncs_of_a_window()
 
 
 def test_reinit_device_releases_the_graphs(card, monkeypatch):

@@ -75,3 +75,33 @@ def test_small_rules_every_matcher_kind_matches_jax(monkeypatch, automata):
     assert {v.status for v in got} >= {200, 403, 405, 406, 413}
     assert teng.prefilter_stats == jeng.prefilter_stats
     assert verdict_key(teng.evaluate_one(treqs[1])) == verdict_key(want[1])
+
+
+def test_confirm_split_tiles_the_confirm():
+    """A window's prefilter confirm is logged as a read-back wait and an
+    exact search per device tier, end to end: together they are the old
+    ``stage_s["confirm"]``, from the match stages' dispatch to the post
+    stage's."""
+    rules = SMALL_RULES + 'SecRule ARGS "@rx (a|bc)*a(a|bc){7}d" "id:2002,phase:2,deny,status:403,t:none"\n'
+    eng = TEngine(rules, device="cpu")
+    reqs = [TRequest(uri="/?q=aaaaaaaad"), TRequest(uri="/?q=bcbcbcbcd")]
+    reqs += [TRequest(uri=f"/?a=short-{i}") for i in range(260)]
+    reqs += [TRequest(uri=f"/?b={i}-" + "A" * 700) for i in range(260)]
+    inflight = eng.prepare(reqs)
+    verdicts = eng.collect(inflight)
+    assert [v.rule_id for v in verdicts[:2]] == [2002, None]
+    assert eng.prefilter_stats["hits"] > eng.prefilter_stats["confirms"] > 0
+    spans = inflight.spans
+    names = [n for n, _t0, _t1 in spans]
+    pieces = [s for s in spans if s[0] in ("confirm_wait", "confirm_search")]
+    assert [s[0] for s in pieces] == ["confirm_wait", "confirm_search"] * (len(pieces) // 2)
+    assert len(pieces) >= 4, "expected two device tiers"
+    for (name, _a, b), (_next, c, _d) in zip(spans, spans[1:]):
+        if name in ("copy_in", "match_dispatch", "confirm_wait", "confirm_search"):
+            assert b == c  # each piece ends where the next begins
+    match_end = spans[names.index("match_dispatch")][2]
+    post_start = spans[names.index("post_dispatch")][1]
+    wait = inflight.span_s("confirm_wait")
+    search = inflight.span_s("confirm_search")
+    assert wait + search == pytest.approx(post_start - match_end, abs=1e-9)
+    assert inflight.stage_s["confirm"] == pytest.approx(wait + search, abs=1e-12)

@@ -14,13 +14,15 @@ governor's refusal taxonomy on both packages, byte-equal: 503 past the
 connection cap, the 408 of the header/body deadline, the 413 body ceiling
 and the 429 memory shed; the stats and metric names; the listener off by
 default and a stray RPC answered UNIMPLEMENTED; and ``gpu-engine``'s
-flags (``--extproc-port``) start a sidecar whose listener answers.
+flags (``--extproc-port``) start a sidecar whose listener answers. Last,
+the port's window log records a stream's wait for an ext_proc worker.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import socket
+import threading
 import time
 
 import pytest
@@ -34,6 +36,7 @@ from coraza_kubernetes_operator_tpu_torch.cache import RuleSetCache as TCache
 from coraza_kubernetes_operator_tpu_torch.cache import RuleSetCacheServer as TCacheServer
 from coraza_kubernetes_operator_tpu_torch.cmd import gpu_engine
 from coraza_kubernetes_operator_tpu_torch.engine import WafEngine as TEngine
+from coraza_kubernetes_operator_tpu_torch.observability.tracing import WINDOWS
 from coraza_kubernetes_operator_tpu_torch.ops import kernels
 from coraza_kubernetes_operator_tpu_torch.sidecar import SidecarConfig as TConfig
 from coraza_kubernetes_operator_tpu_torch.sidecar import TpuEngineSidecar as TSidecar
@@ -290,3 +293,38 @@ def test_gpu_engine_flags_start_the_listener(monkeypatch):
     finally:
         sc.stop()
         srv.stop()
+
+
+def test_second_stream_waits_for_the_one_worker(engines, monkeypatch):
+    """One ext_proc worker, two streams at once: the first holds the worker
+    through its 150 ms window, so the second's message waits for it, and
+    the window log's record of the second window carries that wait."""
+    monkeypatch.setenv("CKO_EXTPROC_WORKERS", "1")
+    sc = TSidecar(TConfig(device="cpu", host="127.0.0.1", port=0, max_batch_size=64,
+                          max_batch_delay_ms=150.0, frontend="threaded", extproc_port=0,
+                          extproc_impl="native"), engine=engines[1])
+    sc.start()
+    try:
+        assert _wait(lambda: sc.serving_mode() == "promoted"), sc.serving_mode()
+        t0 = time.monotonic()
+        got = []
+
+        def stream(path):
+            client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+            try:
+                got.append(client.filter("GET", path, HOST, b"")["status"])
+            finally:
+                client.close()
+
+        threads = [threading.Thread(target=stream, args=(p,)) for p in ("/?a=1", "/?a=2")]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert got == [200, 200]
+        assert _wait(lambda: len(WINDOWS.records(t0)) >= 2, 10)
+        first, second = sorted(WINDOWS.records(t0), key=lambda r: r.t)[:2]
+        assert (first.n_requests, second.n_requests) == (1, 1)
+        assert first.extproc_wait_s < 0.1 <= second.extproc_wait_s
+    finally:
+        sc.stop()

@@ -10,8 +10,9 @@ runs every stage on its device at once; on the CPU:
   verdicts and the JAX engine's lazy ones;
 - a window at shapes this process has not run is counted as a miss and
   still runs on the device; the same shapes again count a hit;
-- ``automata_summary`` equals the JAX engine's; ``CKO_TIER_TIMING=1``
-  adds per-stage p50s.
+- ``automata_summary`` equals the JAX engine's; the port reads no
+  ``CKO_TIER_TIMING``: its per-stage p50s come from the stages'
+  event-measured device time, which the CPU does not have.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from coraza_kubernetes_operator_tpu.engine import WafEngine as JEngine
 from coraza_kubernetes_operator_tpu_torch import corpus as tcorpus
 from coraza_kubernetes_operator_tpu_torch.engine import HttpRequest as TRequest
 from coraza_kubernetes_operator_tpu_torch.engine import WafEngine as TEngine
+from coraza_kubernetes_operator_tpu_torch.engine import waf
 from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import EXEC_CACHE
 from torch_rules import REQUESTS, SMALL_RULES
 
@@ -114,15 +116,31 @@ def test_first_window_at_new_shapes_is_a_miss_on_the_device(monkeypatch, jax_ver
 
 
 def test_automata_summary_equals_jax_and_tier_timing(monkeypatch):
+    """With ``CKO_TIER_TIMING=1`` set, the port times nothing of its own:
+    on the CPU its summary equals the JAX engine's without the knob, and
+    the per-stage p50s appear only from event-measured device intervals
+    (on the card; here a window's completed events are stood in for)."""
     reqs_t, reqs_j = _requests(TRequest), _requests(JRequest)
     jeng = JEngine(RULES)
     jeng.evaluate(reqs_j)
     monkeypatch.setenv("CKO_TIER_TIMING", "1")
     teng = TEngine(RULES, device="cpu")
-    teng.evaluate(reqs_t)
+    inflight = teng.prepare(reqs_t)
+    teng.collect(inflight)
     got, want = teng.automata_summary(), jeng.automata_summary()
-    timing = got.pop("tier_p50_ms")
-    want.pop("tier_p50_ms", None)
+    assert "tier_p50_ms" not in got and "tier_p50_ms" not in want
     assert got == want
-    assert "post" in timing and any(k.startswith("match:") for k in timing)
-    assert all(ms > 0 for ms in timing.values())
+    assert inflight.device == [] and inflight.device_s is None
+
+    class Ran:  # libcuda's events stood in: each is the device time it ran at
+        elapsed_s = staticmethod(lambda start, end: end - start)
+        release = staticmethod(lambda events: None)
+
+    monkeypatch.setattr(waf, "STAGE_EVENTS", Ran())
+    labels = [n for n, _t0, _t1 in inflight.spans]
+    assert labels[:3] == ["assemble", "copy_in", "match_dispatch"]
+    stages = [("match:0", 0.001, 0.004), ("post", 0.004, 0.006)]
+    inflight.events = [(s, a, b, 1.0) for s, a, b in stages]
+    teng._device_intervals(inflight, 2.0)
+    timing = teng.automata_summary()["tier_p50_ms"]
+    assert timing == pytest.approx({"match:0": 3.0, "post": 2.0})
