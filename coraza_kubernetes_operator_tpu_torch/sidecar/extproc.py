@@ -36,7 +36,8 @@ BUFFERED, response side SKIP):
   body-phase header mutations because BUFFERED holds the headers).
 
 The :class:`IngressGovernor` covers this surface too: per-stream
-connection slots, header/body deadlines (native impl), the streaming
+connection slots, header/body deadlines (native impl; it also times
+out a parked stream's verdict as ``filter_reply`` would), the streaming
 body ceiling (413), and the in-flight byte ledger (429 shed) — one
 resource story per sidecar, with the same refusal taxonomy bytes as the
 HTTP frontends.
@@ -50,6 +51,7 @@ import struct
 import threading
 import time as _time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutTimeout
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..engine.request import HttpRequest
@@ -785,8 +787,9 @@ class _ExtStream:
         self.deadline: Optional[float] = None
         self.ctx = None
         self.tenant: Optional[str] = None
-        # Seconds this stream's messages waited for a frontend worker
-        # (native transport), carried to the batcher's window log.
+        # Seconds this stream's messages waited from their arrival to the
+        # start of their handling (native transport: on the connection's
+        # reader thread), carried to the batcher's window log.
         self.pool_wait_s = 0.0
 
 
@@ -846,10 +849,12 @@ class ExtProcEngine:
 
     # -- message handling ---------------------------------------------------
 
-    def on_message(self, st: _ExtStream, data: bytes) -> List[bytes]:
+    def on_message(self, st: _ExtStream, data: bytes) -> List[Any]:
         """Handle one ProcessingRequest; returns encoded
-        ProcessingResponses. ``st.done`` flips when the stream needs no
-        further messages (immediate response or final CONTINUE sent)."""
+        ProcessingResponses, or one :class:`_Pending` where the message
+        submitted the request for its verdict (the transport answers it
+        with ``finish`` once resolved, or ``reply`` to block for it).
+        ``st.done`` flips when the stream needs no further messages."""
         self.frontend.messages_total += 1
         try:
             kind, payload = decode_processing_request(data)
@@ -878,7 +883,7 @@ class ExtProcEngine:
             return [field_bytes(field, b"")]
         return []
 
-    def _on_request_headers(self, st: _ExtStream, payload: dict) -> List[bytes]:
+    def _on_request_headers(self, st: _ExtStream, payload: dict) -> List[Any]:
         gov = self.sidecar.governor
         st.headers = payload.get("headers", [])
         if self.sidecar.config.trust_tenant_header:
@@ -915,7 +920,7 @@ class ExtProcEngine:
         )
         return [encode_continue_response(_PRESP_REQUEST_HEADERS, [])]
 
-    def _on_request_body(self, st: _ExtStream, payload: dict) -> List[bytes]:
+    def _on_request_body(self, st: _ExtStream, payload: dict) -> List[Any]:
         gov = self.sidecar.governor
         chunk = payload.get("body", b"")
         if chunk:
@@ -972,11 +977,13 @@ class ExtProcEngine:
     def _evaluate(
         self, st: _ExtStream, phase_field: int,
         lane: Optional[str] = None,
-    ) -> bytes:
-        """The ext_proc analogue of the threaded ``_handle_filter``: one
-        ``filter_reply`` call, the same trace events, the same header
-        bytes — encoded as CONTINUE+mutation (allow/fail-open) or an
-        ImmediateResponse (everything else)."""
+    ) -> "_Pending":
+        """The ext_proc analogue of the threaded ``_handle_filter``, in
+        two halves: this one builds the request and submits it
+        (``filter_submit``, which never blocks); ``finish`` maps the
+        outcome with ``filter_finish`` and encodes it as CONTINUE+mutation
+        (allow/fail-open) or an ImmediateResponse (everything else) — the
+        same trace events and header bytes as the HTTP frontends."""
         sc = self.sidecar
         method, uri, authority = "GET", "/", ""
         header_list: List[Tuple[str, str]] = []
@@ -1029,16 +1036,31 @@ class ExtProcEngine:
         if ctx is not None:
             ctx.event("accept", t_accept, t_accept, track="frontend")
             ctx.event("parse", t_accept, _time.monotonic(), track="frontend")
-        status, payload, headers = sc.filter_reply(
+        call = sc.filter_submit(
             req, tenant=tenant, deadline_s=deadline_s, span=ctx, lane=lane,
             extproc_wait_s=st.pool_wait_s,
         )
+        st.done = True
+        return _Pending(st, phase_field, call)
+
+    def reply(self, pending: "_Pending") -> bytes:
+        """Blocking: wait for the verdict, then ``finish`` (the grpcio
+        transport, whose server owns its threads)."""
+        self.sidecar.filter_wait(pending.call)
+        return self.finish(pending)
+
+    def finish(self, pending: "_Pending") -> bytes:
+        """The encoded ProcessingResponse for a resolved (or timed out)
+        evaluation. Blocks only where ``sidecar.filter_on_host`` says
+        the host evaluates the request."""
+        sc = self.sidecar
+        ctx = pending.st.ctx
+        status, payload, headers = sc.filter_finish(pending.call)
         if ctx is not None:
             headers = {**(headers or {}), "traceparent": ctx.response_traceparent()}
             t_reply = _time.monotonic()
             ctx.event("reply", t_reply, t_reply, track="frontend")
             sc.tracer.commit(ctx)
-        st.done = True
         headers = headers or {}
         action = headers.get("x-waf-action", "")
         if status == 200 and action in ("allow", "fail-open"):
@@ -1050,11 +1072,23 @@ class ExtProcEngine:
                 for k, v in headers.items()
                 if k.lower() not in ("content-type", "content-length")
             ]
-            return encode_continue_response(phase_field, mutation)
+            return encode_continue_response(pending.phase_field, mutation)
         return self._reply_immediate(
             status, payload,
             [(k.lower(), v.encode("latin-1")) for k, v in headers.items()],
         )
+
+
+class _Pending:
+    """A stream's evaluation between its submit and its reply: the
+    sidecar's ``FilterCall`` and the phase the answer is encoded for."""
+
+    __slots__ = ("st", "phase_field", "call")
+
+    def __init__(self, st: _ExtStream, phase_field: int, call):
+        self.st = st
+        self.phase_field = phase_field
+        self.call = call
 
 
 DEADLINE_HEADER_LOWER = "x-cko-deadline-ms"
@@ -1067,26 +1101,36 @@ DEADLINE_HEADER_LOWER = "x-cko-deadline-ms"
 
 class _NativeStream:
     __slots__ = ("ext", "header_buf", "grpc_buf", "headers_sent",
-                 "closed", "inbox", "busy", "unknown", "half_closed",
-                 "t_queued")
+                 "closed", "unknown", "half_closed", "pending", "released")
 
     def __init__(self):
         self.ext: Optional[_ExtStream] = None
         self.header_buf = bytearray()
         self.grpc_buf = bytearray()
         self.headers_sent = False
-        self.closed = False
-        self.inbox: List[bytes] = []
-        self.busy = False
+        self.closed = False  # no more frames of ours (trailers sent or reset)
         self.unknown = False
         self.half_closed = False
-        self.t_queued = 0.0  # when the stream was last handed to the pool
+        # The evaluation parked on its verdict: set by the reader, taken
+        # once (``_NativeConn._claim``) by whoever answers it.
+        self.pending: Optional[_Pending] = None
+        self.released = False  # governor charge and connection slot given back
 
 
 class _NativeConn:
-    """One accepted TCP connection: HTTP/2 framing in, responses out
-    under a write lock (evaluation happens on the frontend worker pool,
-    so interleaved streams never corrupt the frame sequence)."""
+    """One accepted TCP connection. The reader thread (``serve``) parses
+    HTTP/2 frames and handles each ext_proc message in place: decode,
+    governor admission, the request build and the batcher submit, none of
+    which blocks. A stream that has submitted is parked on its future and
+    holds no thread: the future's completion (on the batcher's threads)
+    only queues the stream for the connection's writer thread, which maps
+    each verdict, encodes it and writes every reply that is ready, DATA
+    and trailers of all streams, with one ``sendall``. The frontend's pool
+    runs only what blocks: host-fallback evaluation (the degraded route,
+    or the rescue of a device error or a missed client deadline). The
+    reader writes its own short frames (SETTINGS and PING acks, flow
+    control, header-phase CONTINUEs, refusals) under the same write lock,
+    so frames never interleave."""
 
     def __init__(self, frontend: "ExtProcFrontend", sock: socket.socket,
                  peer: str):
@@ -1096,13 +1140,17 @@ class _NativeConn:
         self.peer = peer
         self.decoder = HpackDecoder()
         self.encoder = HpackEncoder()
+        # Live streams; only the reader adds or removes entries.
         self.streams: Dict[int, _NativeStream] = {}
+        self.last_stream_id = 0
         self.wlock = threading.Lock()
-        # Guards inbox/busy handoff between the reader thread and the
-        # per-stream worker (wlock stays write-only: a blocking sendall
-        # must never delay frame parsing).
-        self.ilock = threading.Lock()
-        self.continuation_for: Optional[int] = None
+        # Guards each stream's ``pending`` and ``released``, the outbound
+        # queue and ``shut`` across the reader, the threads that resolve
+        # verdicts, the pool and the writer (``wlock`` stays write-only).
+        self.ocond = threading.Condition(threading.Lock())
+        self.outq: List[Tuple[int, _NativeStream, Any]] = []
+        self.shut = False
+        self.continuation: Optional[Tuple[int, _NativeStream]] = None
         self.closing = False
 
     # -- writes -------------------------------------------------------------
@@ -1111,20 +1159,26 @@ class _NativeConn:
         with self.wlock:
             self.sock.sendall(data)
 
-    def _send_response_headers(self, stream_id: int, ns: _NativeStream) -> None:
-        if ns.headers_sent:
-            return
-        block = self.encoder.encode([
-            (b":status", b"200"),
-            (b"content-type", b"application/grpc"),
-        ])
-        self._send(h2_frame(_F_HEADERS, _FLAG_END_HEADERS, stream_id, block))
-        ns.headers_sent = True
+    def _message_frames(self, stream_id: int, ns: _NativeStream,
+                        messages: List[bytes]) -> bytes:
+        if ns.closed or not messages:
+            return b""
+        out = bytearray()
+        if not ns.headers_sent:
+            out += h2_frame(_F_HEADERS, _FLAG_END_HEADERS, stream_id,
+                            self.encoder.encode([
+                                (b":status", b"200"),
+                                (b"content-type", b"application/grpc"),
+                            ]))
+            ns.headers_sent = True
+        out += h2_frame(_F_DATA, 0, stream_id,
+                        b"".join(grpc_frame(m) for m in messages))
+        return bytes(out)
 
-    def _send_trailers(self, stream_id: int, ns: _NativeStream,
-                       grpc_status: int = 0, message: str = "") -> None:
+    def _trailer_frames(self, stream_id: int, ns: _NativeStream,
+                        grpc_status: int = 0, message: str = "") -> bytes:
         if ns.closed:
-            return
+            return b""
         trailers = [(b"grpc-status", str(grpc_status).encode())]
         if message:
             trailers.append((b"grpc-message", message.encode("latin-1")))
@@ -1135,34 +1189,144 @@ class _NativeConn:
                 (b"content-type", b"application/grpc"),
             ] + trailers
             ns.headers_sent = True
-        block = self.encoder.encode(trailers)
-        self._send(h2_frame(
-            _F_HEADERS, _FLAG_END_HEADERS | _FLAG_END_STREAM, stream_id, block
-        ))
         ns.closed = True
+        return h2_frame(_F_HEADERS, _FLAG_END_HEADERS | _FLAG_END_STREAM,
+                        stream_id, self.encoder.encode(trailers))
 
     def _send_messages(self, stream_id: int, ns: _NativeStream,
                        messages: List[bytes]) -> None:
-        if ns.closed or not messages:
-            return
-        self._send_response_headers(stream_id, ns)
-        out = bytearray()
-        for msg in messages:
-            out += grpc_frame(msg)
-        self._send(h2_frame(_F_DATA, 0, stream_id, bytes(out)))
+        data = self._message_frames(stream_id, ns, messages)
+        if data:
+            self._send(data)
+
+    def _send_trailers(self, stream_id: int, ns: _NativeStream,
+                       grpc_status: int = 0, message: str = "") -> None:
+        data = self._trailer_frames(stream_id, ns, grpc_status, message)
+        if data:
+            self._send(data)
+
+    # -- parked streams -----------------------------------------------------
+
+    def _park(self, stream_id: int, ns: _NativeStream, pending: _Pending) -> None:
+        with self.ocond:
+            ns.pending = pending
+        self.frontend._count_awaiting(1)
+        pending.call.fut.add_done_callback(
+            lambda _fut: self._on_verdict(stream_id, ns)
+        )
+
+    def _on_verdict(self, stream_id: int, ns: _NativeStream) -> None:
+        """Future callback, on whichever thread resolved it (the batcher's
+        dispatch or collector thread, or a canceller): queue only."""
+        pending = self._claim(ns)
+        if pending is not None:
+            self._enqueue(stream_id, ns, pending)
+
+    def _claim(self, ns: _NativeStream) -> Optional[_Pending]:
+        """Take the stream's parked evaluation; exactly one caller gets it
+        (the verdict, the verdict deadline, a reset or the close)."""
+        with self.ocond:
+            pending, ns.pending = ns.pending, None
+        if pending is not None:
+            self.frontend._count_awaiting(-1)
+        return pending
+
+    def _enqueue(self, stream_id: int, ns: _NativeStream, item: Any) -> None:
+        """Hand the writer an answer: a ``_Pending`` to finish, or the
+        encoded message the pool finished."""
+        with self.ocond:
+            if self.shut:
+                return
+            self.outq.append((stream_id, ns, item))
+            self.ocond.notify()
+
+    def _release(self, ns: _NativeStream) -> None:
+        """Give back the stream's governor charge and connection slot,
+        once."""
+        with self.ocond:
+            if ns.released or ns.ext is None:
+                return
+            ns.released = True
+        self.engine.close_stream(ns.ext)
+
+    def _write_loop(self) -> None:
+        """The writer thread: every reply that is ready, in one
+        ``sendall`` per wake-up."""
+        gov = self.engine.sidecar.governor
+        while True:
+            with self.ocond:
+                while not self.outq and not self.shut:
+                    self.ocond.wait()
+                if self.shut:
+                    self.outq = []
+                    return
+                batch, self.outq = self.outq, []
+            out = bytearray()
+            for stream_id, ns, item in batch:
+                try:
+                    out += self._reply_frames(stream_id, ns, item)
+                except Exception as err:
+                    gov.count("conn_errors_total")
+                    log.error("ext_proc stream failed", err)
+                    self._release(ns)
+                    out += self._trailer_frames(stream_id, ns, grpc_status=13,
+                                                message="internal")
+            if not out:
+                continue
+            try:
+                self._send(bytes(out))
+            except (ConnectionError, OSError):
+                # The peer is gone: wake the reader so it closes.
+                try:
+                    self.sock.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                return
+
+    def _reply_frames(self, stream_id: int, ns: _NativeStream, item: Any) -> bytes:
+        if isinstance(item, _Pending):
+            sc = self.engine.sidecar
+            sc.filter_wait(item.call)  # resolved (or timed out): no wait
+            if sc.filter_on_host(item.call):
+                self.frontend.pool.submit(self._finish_on_pool, stream_id, ns, item)
+                return b""
+            item = self.engine.finish(item)
+        if ns.closed:  # reset while its answer was on the way
+            return b""
+        self._release(ns)
+        return (self._message_frames(stream_id, ns, [item])
+                + self._trailer_frames(stream_id, ns))
+
+    def _finish_on_pool(self, stream_id: int, ns: _NativeStream,
+                        pending: _Pending) -> None:
+        try:
+            self._enqueue(stream_id, ns, self.engine.finish(pending))
+        except Exception as err:
+            self.engine.sidecar.governor.count("conn_errors_total")
+            log.error("ext_proc stream failed", err)
+            self._release(ns)
+            try:
+                self._send_trailers(stream_id, ns, grpc_status=13, message="internal")
+            except (ConnectionError, OSError):
+                pass
 
     # -- reads --------------------------------------------------------------
 
     def _read_timeout(self) -> Optional[float]:
         """Idle timeout, tightened to the nearest live stream deadline so
-        a header/body reap never waits out the whole idle window."""
+        a header/body reap or a verdict timeout never waits out the whole
+        idle window."""
         gov = self.engine.sidecar.governor
         timeout = gov.idle_timeout_s if gov.idle_timeout_s > 0 else None
         now = _time.monotonic()
         for ns in self.streams.values():
-            if ns.closed or ns.ext is None or ns.ext.deadline is None:
+            if ns.closed or ns.ext is None:
                 continue
-            remain = max(0.05, ns.ext.deadline - now)
+            pending = ns.pending
+            dl = pending.call.due if pending is not None else ns.ext.deadline
+            if dl is None:
+                continue
+            remain = max(0.05, dl - now)
             if timeout is None or remain < timeout:
                 timeout = remain
         return timeout
@@ -1176,6 +1340,9 @@ class _NativeConn:
             preface = _recv_exact(self.sock, len(H2_PREFACE))
             if preface != H2_PREFACE:
                 return
+            threading.Thread(
+                target=self._write_loop, name="cko-extproc-writer", daemon=True
+            ).start()
             # Our SETTINGS + a receive-window bump for buffered bodies.
             settings = struct.pack("!HI", 0x4, _WINDOW_BONUS)  # INITIAL_WINDOW_SIZE
             self._send(h2_frame(_F_SETTINGS, 0, 0, settings))
@@ -1198,26 +1365,50 @@ class _NativeConn:
             gov.count("conn_errors_total")
             log.error("ext_proc connection failed", err)
         finally:
+            with self.ocond:
+                self.shut = True
+                self.ocond.notify()
             for ns in self.streams.values():
-                if ns.ext is not None and not ns.closed:
-                    self.engine.close_stream(ns.ext)
-                    ns.closed = True
+                self._drop(ns)
             self.streams.clear()
             try:
                 self.sock.close()
             except OSError:
                 pass
 
+    def _drop(self, ns: _NativeStream) -> None:
+        """End a stream we will not answer (reset, or the connection
+        closed): cancel its parked future, release it once."""
+        pending = self._claim(ns)
+        if pending is not None:
+            pending.call.fut.cancel()
+        ns.closed = True
+        self._release(ns)
+
     def _reap_deadlines(self) -> bool:
-        """Answer 408 on streams past their header/body deadline.
-        Returns False when the connection is idle with no live streams
-        (caller closes on idle timeout)."""
+        """Answer 408 on streams past their header/body deadline, and the
+        verdict-timeout answer on parked streams past theirs; forget
+        streams we have closed. Returns False when the connection is idle
+        with no live streams (caller closes on idle timeout)."""
         now = _time.monotonic()
         live = False
         for stream_id, ns in list(self.streams.items()):
-            if ns.closed or ns.ext is None:
+            if ns.closed:
+                del self.streams[stream_id]
+                continue
+            if ns.ext is None:
                 continue
             live = True
+            pending = ns.pending
+            if pending is not None:
+                call = pending.call
+                if now > call.due and not call.fut.done() and self._claim(ns) is pending:
+                    # As ``fut.result`` timing out: the failure policy, or
+                    # the host fallback for a missed client deadline.
+                    call.fut.cancel()
+                    call.error = FutTimeout()
+                    self._enqueue(stream_id, ns, pending)
+                continue
             dl = ns.ext.deadline
             if dl is not None and now > dl:
                 self._send_messages(stream_id, ns, [
@@ -1228,7 +1419,7 @@ class _NativeConn:
 
     def _dispatch(self, ftype: int, flags: int, stream_id: int,
                   payload: bytes) -> None:
-        if self.continuation_for is not None and ftype != _F_CONTINUATION:
+        if self.continuation is not None and ftype != _F_CONTINUATION:
             raise ValueError("expected CONTINUATION")
         if ftype == _F_SETTINGS:
             if not flags & _FLAG_ACK:
@@ -1239,27 +1430,35 @@ class _NativeConn:
         elif ftype == _F_GOAWAY:
             self.closing = True
         elif ftype == _F_HEADERS:
-            ns = self.streams.setdefault(stream_id, _NativeStream())
+            ns = self.streams.get(stream_id)
+            if ns is None:
+                ns = _NativeStream()
+                if stream_id <= self.last_stream_id:
+                    # A stream we have answered and forgotten (its client
+                    # trailers): decode the block for HPACK and drop it.
+                    ns.closed = True
+                else:
+                    self.last_stream_id = stream_id
+                self.streams[stream_id] = ns
             ns.header_buf += _strip_padding(payload, flags, priority_ok=True)
             if flags & _FLAG_END_HEADERS:
                 self._headers_complete(stream_id, ns, flags)
             else:
-                self.continuation_for = stream_id
+                self.continuation = (stream_id, ns)
         elif ftype == _F_CONTINUATION:
-            if stream_id != self.continuation_for:
+            if self.continuation is None or stream_id != self.continuation[0]:
                 raise ValueError("CONTINUATION for wrong stream")
-            ns = self.streams[stream_id]
+            ns = self.continuation[1]
             ns.header_buf += payload
             if flags & _FLAG_END_HEADERS:
-                self.continuation_for = None
+                self.continuation = None
                 self._headers_complete(stream_id, ns, flags)
         elif ftype == _F_DATA:
             self._on_data(stream_id, flags, payload)
         elif ftype == _F_RST_STREAM:
             ns = self.streams.pop(stream_id, None)
-            if ns is not None and ns.ext is not None and not ns.closed:
-                self.engine.close_stream(ns.ext)
-                ns.closed = True
+            if ns is not None:
+                self._drop(ns)
         # PRIORITY / WINDOW_UPDATE / PUSH_PROMISE: nothing to do — our
         # responses are far below the peer's default send window.
 
@@ -1267,7 +1466,7 @@ class _NativeConn:
                           flags: int) -> None:
         headers = self.decoder.decode(bytes(ns.header_buf))
         ns.header_buf = bytearray()
-        if ns.ext is not None:
+        if ns.ext is not None or ns.closed:
             # HEADERS after the request headers = gRPC client trailers;
             # nothing to decode beyond keeping HPACK state in sync.
             return
@@ -1288,10 +1487,12 @@ class _NativeConn:
         ns.ext = ext
         if flags & _FLAG_END_STREAM:
             # A gRPC stream with zero messages: nothing to evaluate.
-            self.engine.close_stream(ext)
-            self._send_trailers(stream_id, ns)
+            self._finish_stream(stream_id, ns)
 
     def _on_data(self, stream_id: int, flags: int, payload: bytes) -> None:
+        """Handle the stream's complete messages here, on the reader: none
+        of it blocks, and a message that submits parks the stream."""
+        t_arrival = _time.monotonic()
         data = _strip_padding(payload, flags)
         # Replenish receive flow control for the consumed frame.
         if payload:
@@ -1304,62 +1505,36 @@ class _NativeConn:
         if ns is None or ns.closed or ns.unknown:
             return
         ns.grpc_buf += data
-        messages: List[bytes] = []
+        ns.half_closed = ns.half_closed or bool(flags & _FLAG_END_STREAM)
+        ext = ns.ext
         while len(ns.grpc_buf) >= 5:
             mlen = int.from_bytes(ns.grpc_buf[1:5], "big")
             if len(ns.grpc_buf) < 5 + mlen:
                 break
-            messages.append(bytes(ns.grpc_buf[5 : 5 + mlen]))
+            msg = bytes(ns.grpc_buf[5 : 5 + mlen])
             del ns.grpc_buf[: 5 + mlen]
-        end = bool(flags & _FLAG_END_STREAM)
-        dispatch = False
-        with self.ilock:
-            ns.inbox.extend(messages)
-            ns.half_closed = ns.half_closed or end
-            if (ns.inbox or end) and not ns.busy:
-                ns.busy = True
-                dispatch = True
-        if dispatch:
-            ns.t_queued = _time.monotonic()
-            self.frontend.pool.submit(self._process_stream, stream_id, ns)
+            if ns.closed or ext is None or ext.done:
+                continue
+            ext.pool_wait_s += _time.monotonic() - t_arrival
+            self._answer(stream_id, ns, self.engine.on_message(ext, msg))
+        if ns.half_closed and not ns.closed and (ext is None or not ext.done):
+            self._finish_stream(stream_id, ns)
 
-    def _process_stream(self, stream_id: int, ns: _NativeStream) -> None:
-        """Worker: drain the stream inbox in order (evaluation blocks on
-        the batcher, so this never runs on the reader thread). The time
-        since the stream was handed to the pool is its wait for a worker."""
-        if ns.ext is not None:
-            ns.ext.pool_wait_s += _time.monotonic() - ns.t_queued
-        try:
-            while True:
-                with self.ilock:
-                    if not ns.inbox:
-                        half_closed = ns.half_closed
-                        ns.busy = False
-                        break
-                    batch, ns.inbox = ns.inbox, []
-                for msg in batch:
-                    if ns.closed or ns.ext is None or ns.ext.done:
-                        continue
-                    responses = self.engine.on_message(ns.ext, msg)
-                    self._send_messages(stream_id, ns, responses)
-                    if ns.ext.done:
-                        self._finish_stream(stream_id, ns)
-            if half_closed and not ns.closed:
-                self._finish_stream(stream_id, ns)
-        except (ConnectionError, OSError):
-            pass
-        except Exception as err:
-            self.engine.sidecar.governor.count("conn_errors_total")
-            log.error("ext_proc stream failed", err)
-            try:
-                self._send_trailers(stream_id, ns, grpc_status=13,
-                                    message="internal")
-            except (ConnectionError, OSError):
-                pass
+    def _answer(self, stream_id: int, ns: _NativeStream,
+                responses: List[Any]) -> None:
+        if responses and isinstance(responses[0], _Pending):
+            pending = responses[0]  # ``on_message`` returns it alone
+            if pending.call.fut is not None:
+                self._park(stream_id, ns, pending)
+            else:  # refused at submit, or the host route
+                self._enqueue(stream_id, ns, pending)
+            return
+        self._send_messages(stream_id, ns, responses)
+        if ns.ext.done:
+            self._finish_stream(stream_id, ns)
 
     def _finish_stream(self, stream_id: int, ns: _NativeStream) -> None:
-        if ns.ext is not None and not ns.closed:
-            self.engine.close_stream(ns.ext)
+        self._release(ns)
         self._send_trailers(stream_id, ns)
 
 
@@ -1374,7 +1549,14 @@ class ExtProcFrontend:
     ``impl`` resolves ``auto`` → ``grpcio`` when importable, else the
     native HTTP/2 subset (pin with ``CKO_EXTPROC_IMPL``). Both serve the
     same :class:`ExtProcEngine`. The listener binds eagerly so ``port``
-    answers before ``start()`` (ephemeral port 0 in tests)."""
+    answers before ``start()`` (ephemeral port 0 in tests).
+
+    On the native transport a stream waiting for its verdict holds no
+    thread (see :class:`_NativeConn`): ``awaiting`` counts those parked
+    streams and ``awaiting_peak`` its highest value, and ``pool``
+    (``CKO_EXTPROC_WORKERS`` threads) runs only host-fallback evaluation,
+    so it does not cap the streams in flight. grpcio's server runs its
+    handlers, which block for the verdict, on ``pool``."""
 
     def __init__(self, sidecar, port: int, impl: str = "auto"):
         self.sidecar = sidecar
@@ -1387,6 +1569,9 @@ class ExtProcFrontend:
         self.immediate_total = 0
         self.continue_total = 0
         self.bytes_total = 0
+        self.awaiting = 0
+        self.awaiting_peak = 0
+        self._alock = threading.Lock()
         self.connections_streams_seen = False
         self._started = threading.Event()
         self._stopping = False
@@ -1489,6 +1674,11 @@ class ExtProcFrontend:
         finally:
             self.connections -= 1
 
+    def _count_awaiting(self, delta: int) -> None:
+        with self._alock:
+            self.awaiting += delta
+            self.awaiting_peak = max(self.awaiting_peak, self.awaiting)
+
     def stats(self) -> Dict[str, Any]:
         return {
             "impl": self.impl,
@@ -1500,6 +1690,8 @@ class ExtProcFrontend:
             "immediate_total": self.immediate_total,
             "continue_total": self.continue_total,
             "bytes_total": self.bytes_total,
+            "awaiting": self.awaiting,
+            "awaiting_peak": self.awaiting_peak,
         }
 
 
@@ -1533,6 +1725,10 @@ def _make_grpcio_handler_cls():
                         return
                     for raw in request_iterator:
                         for resp in engine.on_message(st, raw):
+                            # grpcio's sync server owns its threads: the
+                            # handler blocks for the verdict.
+                            if isinstance(resp, _Pending):
+                                resp = engine.reply(resp)
                             yield resp
                         if st.done:
                             return

@@ -689,6 +689,30 @@ class _Server(ThreadingHTTPServer):
     allow_reuse_address = True
 
 
+class FilterCall:
+    """One filter-mode evaluation between ``filter_submit`` and
+    ``filter_finish``: the device path's future and the monotonic time
+    its verdict is due by (``fut`` None where the submit half ended it:
+    ``fallback`` for the host route, ``error`` for a refusal), then the
+    verdict or the exception it resolved to."""
+
+    __slots__ = ("req", "tenant", "deadline_s", "span", "engine", "fallback",
+                 "fut", "due", "verdict", "error")
+
+    def __init__(self, req: HttpRequest, tenant: str | None,
+                 deadline_s: float | None, span):
+        self.req = req
+        self.tenant = tenant
+        self.deadline_s = deadline_s
+        self.span = span
+        self.engine = None
+        self.fallback = False
+        self.fut: Future | None = None
+        self.due = 0.0
+        self.verdict: Verdict | None = None
+        self.error: BaseException | None = None
+
+
 class TpuEngineSidecar:
     """Wires reloader + batcher + HTTP server; the deployable unit."""
 
@@ -1442,6 +1466,10 @@ class TpuEngineSidecar:
             "cko_extproc_bytes_total",
             "Request header+body bytes buffered off ext_proc streams",
         ).set_function(lambda: float(self._extproc_stat("bytes_total")))
+        self.metrics.gauge(
+            "cko_extproc_streams_awaiting",
+            "ext_proc streams parked on their verdict, holding no thread (native)",
+        ).set_function(lambda: float(self._extproc_stat("awaiting")))
         # -- ingress governance (docs/SERVING.md "Overload & limits") -------
         gov = self.governor
         self.metrics.gauge(
@@ -2041,13 +2069,115 @@ class TpuEngineSidecar:
         tag it so an exported trace names the branch taken. ``lane``
         pins the priority lane (ext_proc classifies at the protocol
         level); None auto-classifies from the request body.
-        ``extproc_wait_s``: the request's wait for an ext_proc worker,
-        for the window log."""
+        ``extproc_wait_s``: how long the request's ext_proc messages
+        waited to be handled, for the window log. Blocking: ``filter_submit``, the wait
+        for the verdict, then ``filter_finish``."""
+        call = self.filter_submit(
+            req, tenant=tenant, deadline_s=deadline_s, span=span, lane=lane,
+            extproc_wait_s=extproc_wait_s,
+        )
+        self.filter_wait(call)
+        return self.filter_finish(call)
+
+    def filter_submit(
+        self,
+        req: HttpRequest,
+        tenant: str | None = None,
+        deadline_s: float | None = None,
+        span=None,
+        lane: str | None = None,
+        extproc_wait_s: float = 0.0,
+    ) -> FilterCall:
+        """The half of an evaluation that never blocks: engine lookup,
+        the degraded route, the lane, queue admission, the verdict's
+        timeout and the batcher submit. An exception is kept on the call
+        for ``filter_finish`` to map."""
+        call = FilterCall(req, tenant, deadline_s, span)
         try:
-            verdict = self.evaluate(
-                req, tenant=tenant, deadline_s=deadline_s, span=span, lane=lane,
+            engine = self.tenants.engine_for(tenant)
+            if engine is None:
+                raise EngineUnavailable(f"no compiled ruleset loaded for {tenant!r}")
+            call.engine = engine
+            if self.degraded.route(engine) == "fallback":
+                call.fallback = True
+                return call
+            if lane is None:
+                lane = classify_lane(req)
+            self._admit_device(lane=lane, tenant=tenant)
+            now = _time.monotonic()
+            timeout = self._timeout_for([engine])
+            if deadline_s is not None:
+                timeout = max(0.001, min(timeout, deadline_s - now))
+            call.due = now + timeout
+            # Deadline-header requests bypass the verdict cache: their
+            # cancel/rescue dance must observe the unmodified device path
+            # (trusted-tenant requests are excluded inside the batcher).
+            call.fut = self.batcher.submit(
+                req,
+                tenant=tenant,
+                span=span,
+                lane=lane,
+                no_cache=deadline_s is not None,
                 extproc_wait_s=extproc_wait_s,
             )
+        except Exception as err:
+            call.error = err
+        return call
+
+    @staticmethod
+    def filter_wait(call: FilterCall) -> None:
+        """Block until the submitted verdict resolves or its timeout
+        passes; the outcome lands on the call. Returns at once where the
+        call has its outcome, and does not block on a resolved future."""
+        if call.fut is None or call.verdict is not None or call.error is not None:
+            return
+        try:
+            call.verdict = call.fut.result(
+                timeout=max(0.0, call.due - _time.monotonic())
+            )
+        except Exception as err:
+            call.error = err
+
+    def filter_on_host(self, call: FilterCall) -> bool:
+        """True where ``filter_finish`` evaluates the request on the host:
+        the fallback route, or the rescue of a device error or of a
+        client deadline the device path missed. That is CPU work for a
+        thread that may block, never a reader or the batcher's."""
+        if call.fallback:
+            return True
+        err = call.error
+        if call.fut is None or err is None or isinstance(err, EngineUnavailable):
+            return False
+        # Timeout with no client deadline keeps the legacy contract
+        # (handler -> failurePolicy); anything else — a device error,
+        # or a deadline the device path cannot make — is answered by
+        # the fallback so a verdict still flows.
+        if isinstance(err, (FutTimeout, TimeoutError)) and call.deadline_s is None:
+            return False
+        return self.degraded.fallback_enabled
+
+    def _settle(self, call: FilterCall) -> Verdict:
+        """The call's verdict: the device's, the host fallback's, or the
+        exception the evaluation ended in, raised."""
+        if self.filter_on_host(call):
+            if not call.fallback:
+                # Cancel the queued submission so the device never
+                # evaluates work the fallback is about to answer (the
+                # batcher skips cancelled futures still in its queue).
+                call.fut.cancel()
+                log.error("device path failed; serving from host fallback", call.error)
+            return self._fallback_eval(call.engine, [call.req], span=call.span)[0]
+        if call.error is not None:
+            raise call.error
+        return call.verdict
+
+    def filter_finish(self, call: FilterCall) -> tuple[int, bytes, dict]:
+        """The half that maps the outcome to ``(status, payload,
+        headers)`` and records the verdict. Blocks only where
+        ``filter_on_host(call)``."""
+        span = call.span
+        try:
+            verdict = self._settle(call)
         except Overloaded as err:
             self._span_degraded(span, "shed", "shed")
             return self.overloaded_reply(err, as_json=False)
@@ -2061,7 +2191,7 @@ class TpuEngineSidecar:
             log.error("filter evaluation failed", err)
             self._span_degraded(span, "error", "eval_error")
             return self.unavailable_reply()
-        self.record_verdict(req, verdict, tenant=tenant)
+        self.record_verdict(call.req, verdict, tenant=call.tenant)
         return self.verdict_filter_reply(verdict)
 
     @staticmethod
@@ -2265,57 +2395,6 @@ class TpuEngineSidecar:
                 return max(self.config.compile_timeout_s, self.config.request_timeout_s)
         return self.config.request_timeout_s
 
-    def evaluate(
-        self,
-        request: HttpRequest,
-        tenant: str | None = None,
-        deadline_s: float | None = None,
-        span=None,
-        lane: str | None = None,
-        extproc_wait_s: float = 0.0,
-    ) -> Verdict:
-        engine = self.tenants.engine_for(tenant)
-        if engine is None:
-            raise EngineUnavailable(f"no compiled ruleset loaded for {tenant!r}")
-        if self.degraded.route(engine) == "fallback":
-            return self._fallback_eval(engine, [request], span=span)[0]
-        if lane is None:
-            lane = classify_lane(request)
-        self._admit_device(lane=lane, tenant=tenant)
-        timeout = self._timeout_for([engine])
-        if deadline_s is not None:
-            timeout = max(0.001, min(timeout, deadline_s - _time.monotonic()))
-        # Deadline-header requests bypass the verdict cache: their
-        # cancel/rescue dance must observe the unmodified device path
-        # (trusted-tenant requests are excluded inside the batcher).
-        fut = self.batcher.submit(
-            request,
-            tenant=tenant,
-            span=span,
-            lane=lane,
-            no_cache=deadline_s is not None,
-            extproc_wait_s=extproc_wait_s,
-        )
-        try:
-            return fut.result(timeout=timeout)
-        except EngineUnavailable:
-            raise
-        except Exception as err:
-            # Timeout with no client deadline keeps the legacy contract
-            # (handler -> failurePolicy); anything else — a device error,
-            # or a deadline the device path cannot make — is answered by
-            # the fallback so a verdict still flows.
-            if isinstance(err, (FutTimeout, TimeoutError)) and deadline_s is None:
-                raise
-            if not self.degraded.fallback_enabled:
-                raise
-            # Cancel the queued submission so the device never evaluates
-            # work the fallback is about to answer (the batcher skips
-            # cancelled futures still in its queue).
-            fut.cancel()
-            log.error("device path failed; serving from host fallback", err)
-            return self._fallback_eval(engine, [request], span=span)[0]
-
     def evaluate_bulk_fast(self, body: bytes) -> list[dict] | None:
         """Native bulk evaluation for the default tenant. Returns the
         JSON-ready verdict list, or None when unavailable (no engine,
@@ -2442,7 +2521,7 @@ class TpuEngineSidecar:
         except EngineUnavailable:
             raise
         except Exception as err:
-            # Same degradation contract as evaluate(): legacy timeouts
+            # Same degradation contract as filter_on_host(): legacy timeouts
             # (no client deadline) propagate; other device failures — or
             # a deadline the device path cannot make — answer from the
             # fallback, provided every involved engine has one.

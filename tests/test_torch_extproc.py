@@ -15,7 +15,11 @@ connection cap, the 408 of the header/body deadline, the 413 body ceiling
 and the 429 memory shed; the stats and metric names; the listener off by
 default and a stray RPC answered UNIMPLEMENTED; and ``gpu-engine``'s
 flags (``--extproc-port``) start a sidecar whose listener answers. Last,
-the port's window log records a stream's wait for an ext_proc worker.
+the port's parked streams: a stream waiting for its verdict holds no
+thread (one worker serves many streams, one window), the writer's
+coalesced replies stay well formed, and a verdict timeout, a reset, a
+closed connection and a missed client deadline each end a parked stream
+as the blocking path would.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import dataclasses
 import socket
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -148,15 +153,18 @@ def test_stats_and_metrics_equal(sidecars):
     assert stats["port"] == sidecars.t.config.extproc_port
     assert stats["streams_total"] >= 1 and stats["immediate_total"] >= 1
     assert stats["continue_total"] >= 1
-    assert set(stats) == set(sidecars.j.stats()["extproc"])
+    # The port adds the parked-stream counter and its peak (grpcio blocks
+    # a handler per stream, so both read 0 there).
+    assert set(stats) == set(sidecars.j.stats()["extproc"]) | {"awaiting", "awaiting_peak"}
+    assert 0 == stats["awaiting"] <= stats["awaiting_peak"]
 
     def names(sc):
         body = urllib.request.urlopen(f"http://127.0.0.1:{sc.port}/waf/v1/metrics", timeout=30).read()
         return {ln.split()[2] for ln in body.decode().splitlines()
                 if ln.startswith("# TYPE cko_extproc_")}
 
-    assert names(sidecars.t) == names(sidecars.j)
-    assert len(names(sidecars.t)) == 6
+    assert names(sidecars.t) == names(sidecars.j) | {"cko_extproc_streams_awaiting"}
+    assert len(names(sidecars.t)) == 7
 
 
 @pytest.mark.parametrize(
@@ -295,17 +303,103 @@ def test_gpu_engine_flags_start_the_listener(monkeypatch):
         srv.stop()
 
 
-def test_second_stream_waits_for_the_one_worker(engines, monkeypatch):
-    """One ext_proc worker, two streams at once: the first holds the worker
-    through its 150 ms window, so the second's message waits for it, and
-    the window log's record of the second window carries that wait."""
-    monkeypatch.setenv("CKO_EXTPROC_WORKERS", "1")
-    sc = TSidecar(TConfig(device="cpu", host="127.0.0.1", port=0, max_batch_size=64,
-                          max_batch_delay_ms=150.0, frontend="threaded", extproc_port=0,
-                          extproc_impl="native"), engine=engines[1])
+def _port_sidecar(engine, **kw):
+    """A started port sidecar with a native ext_proc listener, serving on
+    the device path (promoted)."""
+    cfg = dict(device="cpu", host="127.0.0.1", port=0, max_batch_size=64, max_batch_delay_ms=1.0,
+               frontend="threaded", extproc_port=0, extproc_impl="native")
+    cfg.update(kw)
+    sc = TSidecar(TConfig(**cfg), engine=engine)
     sc.start()
+    assert _wait(lambda: sc.serving_mode() == "promoted"), sc.serving_mode()
+    return sc
+
+
+def _record_submits(sc, monkeypatch):
+    """The futures the batcher hands out, in submit order."""
+    futs = []
+    submit = sc.batcher.submit
+
+    def recording(*args, **kw):
+        fut = submit(*args, **kw)
+        futs.append(fut)
+        return fut
+
+    monkeypatch.setattr(sc.batcher, "submit", recording)
+    return futs
+
+
+def _open_streams(client, requests):
+    """Open one stream per request on ``client``'s connection at once, as
+    Envoy multiplexes them, sending each request-headers message; returns
+    ``{stream id: state}`` for ``_read_streams``."""
+    streams = {}
+    for method, path, headers, body in requests:
+        sid = client._next_stream
+        client._next_stream += 2
+        authority = next((v for k, v in headers if k.lower() == "host"), client.authority)
+        ext_headers = [(":method", method), (":scheme", "http"), (":authority", authority),
+                       (":path", path)] + [(k.lower(), v) for k, v in headers if k.lower() != "host"]
+        client._send_headers(sid)
+        client._send_message(sid, tx.encode_request_headers(ext_headers, not body))
+        streams[sid] = {"body": body, "frames": [], "buf": bytearray(), "mutation": {},
+                        "verdict": None}
+    return streams
+
+
+def _read_streams(client, streams, timeout_s=60.0):
+    """Read until every stream has ended: send each bodied stream's body
+    after its header-phase CONTINUE, and record per stream the frames it
+    got in order ("headers", "data", "trailers", "reset") and its verdict
+    shaped as ``ExtProcClient.filter`` returns it."""
+    open_ids = set(streams)
+    deadline = time.monotonic() + timeout_s
+    while open_ids:
+        assert time.monotonic() < deadline, sorted(open_ids)
+        ftype, flags, sid, payload = tx.read_h2_frame(client.sock)
+        if ftype == tx._F_SETTINGS and not flags & tx._FLAG_ACK:
+            client.sock.sendall(tx.h2_frame(tx._F_SETTINGS, tx._FLAG_ACK, 0))
+        st = streams.get(sid)
+        if st is None:
+            continue
+        if ftype == tx._F_HEADERS:
+            headers = dict(client.decoder.decode(tx._strip_padding(payload, flags, priority_ok=True)))
+            if flags & tx._FLAG_END_STREAM:
+                st["frames"].append("trailers")
+                st["grpc_status"] = headers.get(b"grpc-status")
+                open_ids.discard(sid)
+            else:
+                st["frames"].append("headers")
+        elif ftype == tx._F_RST_STREAM:
+            st["frames"].append("reset")
+            open_ids.discard(sid)
+        elif ftype == tx._F_DATA:
+            st["frames"].append("data")
+            st["buf"] += tx._strip_padding(payload, flags)
+            while len(st["buf"]) >= 5 and len(st["buf"]) >= 5 + int.from_bytes(st["buf"][1:5], "big"):
+                mlen = int.from_bytes(st["buf"][1:5], "big")
+                resp = tx.decode_processing_response(bytes(st["buf"][5:5 + mlen]))
+                del st["buf"][:5 + mlen]
+                if resp["kind"] == "immediate":
+                    st["verdict"] = {"status": resp["status"], "headers": resp["headers"],
+                                     "body": resp["body"], "allowed": False}
+                elif resp["phase"] == "request_headers" and st["body"]:
+                    client._send_message(sid, tx.encode_request_body(st["body"], True), end_stream=True)
+                else:
+                    st["mutation"].update(resp["headers"])
+                    st["verdict"] = {"status": 200, "headers": st["mutation"], "body": b"",
+                                     "allowed": True}
+    return streams
+
+
+def test_one_worker_does_not_hold_waiting_streams(engines, monkeypatch):
+    """One ext_proc worker, two streams at once: neither holds the worker
+    while it waits for its verdict, so both reach the batcher inside its
+    150 ms delay, share one window, and the window log records no wait for
+    a worker."""
+    monkeypatch.setenv("CKO_EXTPROC_WORKERS", "1")
+    sc = _port_sidecar(engines[1], max_batch_delay_ms=150.0)
     try:
-        assert _wait(lambda: sc.serving_mode() == "promoted"), sc.serving_mode()
         t0 = time.monotonic()
         got = []
 
@@ -322,9 +416,162 @@ def test_second_stream_waits_for_the_one_worker(engines, monkeypatch):
         for t in threads:
             t.join(60)
         assert got == [200, 200]
-        assert _wait(lambda: len(WINDOWS.records(t0)) >= 2, 10)
-        first, second = sorted(WINDOWS.records(t0), key=lambda r: r.t)[:2]
-        assert (first.n_requests, second.n_requests) == (1, 1)
-        assert first.extproc_wait_s < 0.1 <= second.extproc_wait_s
+        assert _wait(lambda: len(WINDOWS.records(t0)) >= 1, 10)
+        (window,) = WINDOWS.records(t0)
+        assert window.n_requests == 2
+        assert window.extproc_wait_s < 0.1
+    finally:
+        sc.stop()
+
+
+def test_many_streams_on_one_connection_park_without_threads(engines, monkeypatch):
+    """48 concurrent streams on one connection, one ext_proc worker: every
+    stream is parked on its verdict at once (more than the 32 workers the
+    default pool has), and each verdict equals the HTTP frontend's."""
+    monkeypatch.setenv("CKO_EXTPROC_WORKERS", "1")
+    sc = _port_sidecar(engines[1], max_batch_delay_ms=300.0)
+    try:
+        requests = [(m, p, HOST + list(h), b) for m, p, h, b in FILTER_REQUESTS]
+        requests = [requests[i % len(requests)] for i in range(48)]
+        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+        try:
+            streams = _read_streams(client, _open_streams(client, requests))
+        finally:
+            client.close()
+        with ThreadPoolExecutor(len(FILTER_REQUESTS)) as pool:
+            http = list(pool.map(lambda r: _send(sc.port, *r), requests[:len(FILTER_REQUESTS)]))
+        for i, sid in enumerate(sorted(streams)):
+            ext, want = streams[sid]["verdict"], http[i % len(http)]
+            assert (ext["status"],) + tuple(ext["headers"].get(h) for h in FIELDS) == want[:3], requests[i]
+            if not ext["allowed"]:
+                assert ext["body"] == want[3]
+        stats = sc.stats()["extproc"]
+        assert stats["awaiting_peak"] >= 32
+        assert stats["awaiting"] == 0
+    finally:
+        sc.stop()
+
+
+def test_coalesced_replies_keep_frames_well_formed(engines):
+    """Streams that one window completes are answered together by the
+    connection's writer: each gets its response headers, one DATA, then its
+    trailers, and the HPACK state stays in sync for the next request."""
+    sc = _port_sidecar(engines[1], max_batch_delay_ms=300.0)
+    try:
+        t0 = time.monotonic()
+        paths = ["/?q=fgfgeh", "/index.html?q=hello", "/?pet=evilpanda", "/?q=aaaaaaaad",
+                 "/?q=Hello%20World", "/?a=ababc"]
+        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+        try:
+            streams = _read_streams(client, _open_streams(client, [("GET", p, HOST, b"") for p in paths]))
+            for st in streams.values():
+                assert st["frames"] == ["headers", "data", "trailers"], st["frames"]
+                assert st["grpc_status"] == b"0"
+            assert [streams[s]["verdict"]["status"] for s in sorted(streams)] == [403, 200, 403, 403, 200, 403]
+            assert _wait(lambda: len(WINDOWS.records(t0)) >= 1, 10)
+            assert [w.n_requests for w in WINDOWS.records(t0)] == [len(paths)]
+            again = client.filter("GET", "/?pet=evilpanda", HOST + [("traceparent",
+                                  "00-000102030405060708090a0b0c0d0e0f-0102030405060708-01")], b"")
+            assert (again["status"], again["headers"]["x-waf-rule-id"]) == (403, "2003")
+            assert again["headers"]["traceparent"].split("-")[1] == "000102030405060708090a0b0c0d0e0f"
+        finally:
+            client.close()
+    finally:
+        sc.stop()
+
+
+def test_verdict_timeout_answered_by_the_reaper(engines):
+    """A parked stream whose verdict misses the request timeout (the
+    batcher holds its window for 5 s) gets the failure-policy reply when
+    the timeout passes, as the HTTP frontend answers it."""
+    sc = _port_sidecar(engines[1], max_batch_delay_ms=5000.0, request_timeout_s=0.3,
+                       compile_timeout_s=0.3)
+    try:
+        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+        try:
+            t0 = time.monotonic()
+            got = client.filter("GET", "/?q=fgfgeh", HOST, b"")
+            waited = time.monotonic() - t0
+        finally:
+            client.close()
+        http = _send(sc.port, "GET", "/?q=fgfgeh", HOST)
+        assert (got["status"], got["headers"].get("x-waf-action"), got["body"]) == (
+            http[0], http[1], http[3]) == (503, "fail-closed", b"WAF unavailable (fail-closed)\n")
+        assert 0.25 < waited < 3.0
+        assert sc.stats()["extproc"]["awaiting"] == 0
+    finally:
+        sc.stop()
+
+
+def test_reset_cancels_a_parked_stream(engines, monkeypatch):
+    """RST_STREAM on a parked stream cancels its batcher future, gives back
+    its in-flight bytes and connection slot, and nothing more is written
+    on the stream, not even after its window would have closed."""
+    sc = _port_sidecar(engines[1], max_batch_delay_ms=1000.0)
+    futs = _record_submits(sc, monkeypatch)
+    gov = sc.governor
+    try:
+        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+        try:
+            _open_streams(client, [("GET", "/?q=fgfgeh", HOST, b"")])
+            assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 1, 10)
+            assert gov.inflight_bytes > 0 and gov.connections == 1
+            client.sock.sendall(tx.h2_frame(tx._F_RST_STREAM, 0, 1, (8).to_bytes(4, "big")))
+            assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 0, 10)
+            assert _wait(lambda: gov.inflight_bytes == 0 and gov.connections == 0, 10)
+            assert len(futs) == 1 and futs[0].cancelled()
+            client.sock.settimeout(0.3)
+            end = time.monotonic() + 1.5
+            while time.monotonic() < end:
+                try:
+                    ftype, _, sid, _ = tx.read_h2_frame(client.sock)
+                except socket.timeout:
+                    continue
+                # The flow-control update for its DATA came before the reset.
+                assert not (sid == 1 and ftype in (tx._F_HEADERS, tx._F_DATA)), ftype
+        finally:
+            client.close()
+    finally:
+        sc.stop()
+
+
+def test_connection_close_releases_parked_streams(engines, monkeypatch):
+    """Closing a connection with parked streams cancels their futures and
+    gives back every stream's connection slot and bytes."""
+    sc = _port_sidecar(engines[1], max_batch_delay_ms=5000.0)
+    futs = _record_submits(sc, monkeypatch)
+    gov = sc.governor
+    try:
+        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+        _open_streams(client, [("GET", f"/?n={i}", HOST, b"") for i in range(5)])
+        assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 5, 10)
+        assert gov.connections == 5
+        client.sock.close()
+        assert _wait(lambda: gov.connections == 0 and gov.inflight_bytes == 0, 10)
+        assert sc.stats()["extproc"]["awaiting"] == 0
+        assert len(futs) == 5 and all(f.cancelled() for f in futs)
+    finally:
+        sc.stop()
+
+
+def test_missed_client_deadline_answered_by_the_host_fallback(engines):
+    """A parked stream whose ``X-CKO-Deadline-Ms`` passes before the device
+    answers (the batcher holds its window for 3 s) is answered by the host
+    fallback, with the device's verdict."""
+    sc = _port_sidecar(engines[1], max_batch_delay_ms=3000.0)
+    try:
+        before = sc.degraded.fallback_requests
+        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+        try:
+            t0 = time.monotonic()
+            got = client.filter("GET", "/?pet=evilpanda", HOST + [("X-CKO-Deadline-Ms", "150")], b"")
+            waited = time.monotonic() - t0
+        finally:
+            client.close()
+        assert (got["status"], got["headers"]["x-waf-action"], got["headers"]["x-waf-rule-id"]) == (
+            403, "deny", "2003")
+        assert got["body"] == b"blocked by WAF\n"
+        assert sc.degraded.fallback_requests == before + 1
+        assert waited < 2.5
     finally:
         sc.stop()

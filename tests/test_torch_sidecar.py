@@ -169,7 +169,8 @@ def test_metric_family_names_equal(pair):
         return {ln.split()[2] for ln in data.splitlines() if ln.startswith("# TYPE ")}, data
 
     (jf, _jd), (tf, td) = families(pair.j.port), families(pair.t.port)
-    assert tf == jf
+    # The port adds one gauge: ext_proc streams parked on their verdict.
+    assert tf == jf | {"cko_extproc_streams_awaiting"}
     info = [ln for ln in td.splitlines() if ln.startswith("cko_build_info{")]
     assert len(info) == 1 and 'platform="cpu"' in info[0] and "torch=" in info[0]
     assert "cuda=" in info[0]
