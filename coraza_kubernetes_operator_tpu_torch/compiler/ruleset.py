@@ -29,6 +29,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import dataclasses
+import time
 
 import numpy as np
 
@@ -476,6 +477,8 @@ class _Lowering:
         if program.config.get("secdatadir"):
             self.env["__secdatadir__"] = program.config["secdatadir"]
         self.counters: list[str] = []
+        # Seconds in the string operators' automata (DFA build, minimise).
+        self.automata_s = 0.0
         # TX vars written by *conditional* rules are runtime state (anomaly
         # counters) — never compile-time constants.
         self.runtime_tx: set[str] = set()
@@ -620,6 +623,7 @@ class _Lowering:
         # strip-with-warning); *invalid* patterns are hard errors — the
         # validation contract of coraza.NewWAF (reference
         # ruleset_controller.go:158-171) which marks the RuleSet Degraded.
+        t_dfa = time.monotonic()
         try:
             plan = lower_string_operator(op, self.env)
         except RegexParseError as e:
@@ -629,6 +633,8 @@ class _Lowering:
         except (UnsupportedOperator, DFAError) as e:
             self.report.skip(rule_id, str(e))
             return None
+        finally:
+            self.automata_s += time.monotonic() - t_dfa
         if plan.approximate:
             self.report.approximate(rule_id, f"@{op.name} approximated")
 
@@ -1096,8 +1102,14 @@ class _Lowering:
         )
 
 
-def compile_program(program: RuleSetProgram) -> CompiledRuleSet:
-    return _Lowering(program).run()
+def compile_program(program: RuleSetProgram, timings: dict | None = None) -> CompiledRuleSet:
+    """Lower a parsed program. ``timings``, when given, receives the
+    lowering's seconds in the string operators' automata as ``automata``."""
+    low = _Lowering(program)
+    crs = low.run()
+    if timings is not None:
+        timings["automata"] = low.automata_s
+    return crs
 
 
 def compile_rules(text: str) -> CompiledRuleSet:

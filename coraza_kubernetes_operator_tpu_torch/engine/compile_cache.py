@@ -97,7 +97,7 @@ _configured_dir: list[str] = []
 _configure_lock = threading.Lock()
 
 # Host-side planning metadata: never part of a model's layout signature.
-_HOST_META = frozenset({"block_kinds", "block_cost"})
+_HOST_META = frozenset({"block_kinds", "block_cost", "narrow_blocks"})
 
 # Graphs resident per model. A window holds one matcher graph per tier
 # (one to five) and one post graph; a model that serves the Python path,

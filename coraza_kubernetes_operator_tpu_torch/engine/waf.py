@@ -49,9 +49,20 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..compiler.ruleset import CompiledRuleSet, compile_rules
+from ..compiler.ruleset import CompiledRuleSet, compile_program
 from ..compiler.transforms_host import apply_pipeline
-from ..models.waf_model import WafModel, build_model, matched_id_lists, unpack_compact
+from ..models.waf_model import (
+    WafModel,
+    build_model,
+    matched_id_lists,
+    plan_layout,
+    seg_columns,
+    table_bytes,
+    unpack_compact,
+)
+from ..observability.tracing import COMPILES
+from ..ops.segment import conv_n2_cols
+from ..seclang.parser import parse
 from ..utils import get_logger
 from ..utils.device import STAGE_EVENTS, resolve_device
 from .request import Extraction, HttpRequest, TargetExtractor
@@ -92,6 +103,15 @@ _MIN_TIER_ROWS = 256
 # partitions below _MIN_PART_ROWS merge into the largest one.
 _TIER_PARTS = int(_os.environ.get("CKO_TIER_PARTS", "3"))
 _MIN_PART_ROWS = int(_os.environ.get("CKO_MIN_PART_ROWS", "1024"))
+
+
+def part_rows(n: int, mask: int | None, narrow: tuple[int, int]) -> int:
+    """The row bucket of ``n`` rows in a partition with ``mask``; ``narrow``
+    is ``(narrow block mask, row floor)`` (``WafEngine._narrow_rows``), and
+    a partition that reaches a narrow block buckets at the floor or more."""
+    if mask is not None and mask & narrow[0]:
+        n = max(n, narrow[1])
+    return _bucket_rows(max(1, n))
 
 
 def _mask_cost(mask: int, block_cost) -> float:
@@ -138,7 +158,7 @@ def _cluster_masks(values_counts, block_cost, max_parts: int):
     return [(mem, um) for mem, um, _rows in clusters]
 
 
-def tier_tensors(tensors, kind_lut=None, cache=None):
+def tier_tensors(tensors, kind_lut=None, cache=None, narrow: tuple[int, int] = (0, 0)):
     """Split one wide tensorized batch into row-level (length x kind
     partition) tiers of unique rows (numpy, host side).
 
@@ -146,7 +166,12 @@ def tier_tensors(tensors, kind_lut=None, cache=None):
     ``(tiers, numvals, masks)`` where tiers is a tuple of per-tier
     ``(data, lengths, kind1, kind2, kind3, req_id, vdata, vlengths, uid)``
     and masks the aligned block bitmasks (None when ``kind_lut`` is
-    absent). With ``cache`` (a ``ValueHitCache``) the return grows to
+    absent). ``narrow`` is the model's narrow segment blocks as a mask and
+    a row floor (``WafEngine._narrow_rows``): with none, a partition under
+    ``_MIN_PART_ROWS`` rows merges into the largest; with some, no partition
+    merges, and one that reaches them buckets its rows at the floor or more
+    (``part_rows``). With
+    ``cache`` (a ``ValueHitCache``) the return grows to
     ``(tiers, numvals, masks, cached, miss_keys)``: unique rows matched in
     an earlier window skip the matcher, and tier uid indexes the
     concatenation [matcher rows (bucketed) | cached rows]."""
@@ -204,9 +229,9 @@ def tier_tensors(tensors, kind_lut=None, cache=None):
             found, miss = cache.lookup(ukeys)
             usel = sel[first_idx[miss]] if miss else sel[:0]
             mkeys = [ukeys[j] for j in miss]
-            u_pad = _bucket_rows(max(1, usel.size))
+            u_pad = part_rows(usel.size, mask, narrow)
             cpk = np.zeros(
-                (_bucket_rows(max(1, len(found))), cache.packed_len), dtype=np.uint8
+                (part_rows(len(found), mask, narrow), cache.packed_len), dtype=np.uint8
             )
             remap = np.zeros(len(ukeys), dtype=np.int32)
             for r, j in enumerate(miss):
@@ -215,7 +240,7 @@ def tier_tensors(tensors, kind_lut=None, cache=None):
                 cpk[r] = row
                 remap[j] = u_pad + r
 
-        u = _bucket_rows(max(1, usel.size))
+        u = part_rows(usel.size, mask, narrow)
         d = np.zeros((u, length), dtype=np.uint8)
         d[: usel.size] = data[usel, :length]
         lg = np.zeros(u, dtype=np.int32)
@@ -226,7 +251,7 @@ def tier_tensors(tensors, kind_lut=None, cache=None):
             vd[:, : usel.size] = vdata[:, usel, :length]
             vl[:, : usel.size] = vlengths[:, usel]
 
-        p = _bucket_rows(max(1, sel.size))
+        p = part_rows(sel.size, mask, narrow)
         kk = []
         for src in (k1, k2, k3):
             a = np.zeros(p, dtype=np.int32)
@@ -269,7 +294,7 @@ def tier_tensors(tensors, kind_lut=None, cache=None):
         parts = [(sel[pmask == v], int(v)) for v in values.tolist()]
         parts = [(s, um) for s, um in parts if s.size]
         parts.sort(key=lambda su: -su[0].size)
-        while len(parts) > 1 and parts[-1][0].size < _MIN_PART_ROWS:
+        while len(parts) > 1 and not narrow[0] and parts[-1][0].size < _MIN_PART_ROWS:
             s_small, m_small = parts.pop()
             s_big, m_big = parts[0]
             parts[0] = (np.concatenate([s_big, s_small]), m_big | m_small)
@@ -281,6 +306,20 @@ def tier_tensors(tensors, kind_lut=None, cache=None):
     if cache is None:
         return tuple(tiers), numvals, tuple(masks)
     return tuple(tiers), numvals, tuple(masks), tuple(cached), miss_keys
+
+
+def _compile_counters(crs: CompiledRuleSet, model: WafModel) -> dict:
+    """A compile record's counters: groups per matcher tier, the segment
+    blocks, and the model's table bytes."""
+    tiers = {"segment": sum(s.n_groups for s in model.segs),
+             "dfa": sum(b.n_groups for b in model.banks),
+             "dfa-hot": sum(b.n_groups for b in model.gather_banks),
+             "prefiltered": sum(b.n_groups for b in model.pre_banks)}
+    blocks = [{"pipeline": pid, "columns": conv_n2_cols(seg.spec), "groups": seg.n_groups,
+               "narrow": i in model.narrow_blocks}
+              for i, (seg, pid) in enumerate(zip(model.segs, model.seg_pipelines))]
+    return {"groups": len(crs.groups), "groups_per_tier": tiers, "segment_blocks": blocks,
+            "device_table_bytes": table_bytes(model)}
 
 
 def warmup_request() -> HttpRequest:
@@ -339,6 +378,9 @@ class InFlightBatch:
     events: list | None = None
     device: list = field(default_factory=list)
     slack_s: float | None = None
+    # Matcher rows and segment column x row work (WafEngine._seg_work).
+    seg_rows: int = 0
+    seg_col_rows: int = 0
     # Staging-arena lease behind the window's tier arrays (tiered native
     # path), released by collect. Nothing reads the arena buffers after
     # prepare returns: on the card the host-to-device copies are
@@ -469,7 +511,27 @@ class WafEngine:
 
     def __init__(self, rules: str | CompiledRuleSet, device=None):
         self.device = resolve_device(device)
-        self.compiled = rules if isinstance(rules, CompiledRuleSet) else compile_rules(rules)
+        # The compile's stages go to the process's compile log
+        # (observability/tracing.py::COMPILES), one record per engine.
+        rec = COMPILES.open()
+        t = rec.t0
+
+        def stage(name: str, inner_s: float = 0.0) -> None:
+            nonlocal t
+            t1 = time.monotonic()
+            rec.spans.append((name, t1 - t - inner_s))
+            t = t1
+
+        timings = {"automata": 0.0}
+        if isinstance(rules, CompiledRuleSet):
+            self.compiled = rules
+            rec.spans += [("parse", 0.0), ("lowering", 0.0)]
+        else:
+            program = parse(rules)
+            stage("parse")
+            self.compiled = compile_program(program, timings)
+            stage("lowering", timings["automata"])
+        rec.spans.append(("automata", timings["automata"]))
         # Two-level automata plan (CKO_AUTOMATA* knobs): hot groups go to
         # joint-byte-class gather banks, prefiltered groups to
         # over-approximating banks whose positives _confirm_prefilter
@@ -477,9 +539,18 @@ class WafEngine:
         from ..compiler.automata_plan import plan_automata
 
         self.automata_plan = plan_automata(self.compiled)
-        self.model: WafModel = build_model(
-            self.compiled, automata=self.automata_plan, device=self.device
-        )
+        layout = plan_layout(self.compiled, self.automata_plan)
+        stage("planning")
+        timings["upload"] = 0.0
+        model = build_model(self.compiled, automata=self.automata_plan, device=self.device,
+                            plan=layout, timings=timings)
+        stage("build_model", timings["upload"])
+        rec.spans.append(("upload", timings["upload"]))
+        self.model: WafModel = model
+        rec.counters = _compile_counters(self.compiled, model)
+        rec.t1 = t
+        COMPILES.commit(rec)
+        self.compile_record = rec
         self._rows = RequestTensorizer(self.compiled)
         self.extractor = self._rows.extractor
         self._n_real_rules = len(self.compiled.rules)  # model pads to ≥1 row
@@ -513,7 +584,21 @@ class WafEngine:
                 mask_kinds[int(v)] = mask_kinds.get(int(v), 0) + 1
         distinct = sorted(mask_kinds)
         lut = np.zeros(n_kinds + 1, dtype=np.int64)
-        if distinct:
+        narrow = self._narrow = sum(1 << bi for bi in self.model.narrow_blocks)
+        # Rows of a request that can reach a narrow block: at most one per
+        # kind, those kinds being single-valued (_narrow_rows).
+        self._narrow_kinds = len({k for bi in self.model.narrow_blocks
+                                  for k in self.model.block_kinds[bi]})
+        self._peak_requests = 0
+        if narrow:
+            # Narrow segment blocks (plan_segment_blocks): a row reaches one
+            # only through its kinds, and a window holds few such rows, so
+            # the partition splits rows by that reach alone and keeps even
+            # a one-row partition apart; every other block stays on.
+            n_blocks = min(62, len(self.model.block_kinds))
+            wide = ((1 << n_blocks) - 1) & ~narrow
+            lut = wide | (raw & narrow)
+        elif distinct:
             clusters = _cluster_masks(
                 [(v, mask_kinds[v]) for v in distinct], self.model.block_cost, _TIER_PARTS
             )
@@ -524,6 +609,8 @@ class WafEngine:
             for k in range(n_kinds + 1):
                 lut[k] = to_class.get(int(raw[k]), 0)
         self._kind_block_lut = lut
+        # Partition mask -> segment columns its rows meet (_seg_work).
+        self._seg_cols: dict = {}
         # Cross-window value-hit cache (CKO_VALUE_CACHE_MB, 0 disables).
         from .value_cache import ValueHitCache
 
@@ -624,16 +711,31 @@ class WafEngine:
     def tier(self, tensors):
         """Row-level (length x kind-partition) tiering with this engine's
         kind->class-mask table: returns (tiers, numvals, masks)."""
-        return tier_tensors(tensors, self._kind_block_lut)
+        return tier_tensors(tensors, self._kind_block_lut,
+                            narrow=self._narrow_rows(tensors[6].shape[0]))
 
     def tier_cached(self, tensors):
         """Row-level tiering consulting the value cache: returns (tiers,
         numvals, masks, cached, miss_keys); cached and miss_keys are None
         when the cache is disabled."""
         if self.value_cache is None:
-            tiers, numvals, masks = tier_tensors(tensors, self._kind_block_lut)
+            tiers, numvals, masks = self.tier(tensors)
             return tiers, numvals, masks, None, None
-        return tier_tensors(tensors, self._kind_block_lut, cache=self.value_cache)
+        return tier_tensors(tensors, self._kind_block_lut, cache=self.value_cache,
+                            narrow=self._narrow_rows(tensors[6].shape[0]))
+
+    def _narrow_rows(self, n_req: int) -> tuple[int, int]:
+        """``(narrow block mask, row floor)`` for a window of ``n_req``
+        requests (``tier_tensors``). A partition that reaches a narrow block
+        holds at most one row per request for each of its kinds; its rows
+        bucket at that bound for the largest window this engine has tiered,
+        so that after the first large windows every window up to that size
+        gives the partition one shape, however many of its rows the value
+        cache serves."""
+        if not self._narrow:
+            return (0, 0)
+        self._peak_requests = max(self._peak_requests, n_req)
+        return self._narrow, self._narrow_kinds * self._peak_requests
 
     def _batch_tensors(self, requests: list[HttpRequest]):
         """Tensorize + tier one request window: (tiers, numvals, masks,
@@ -645,7 +747,7 @@ class WafEngine:
 
             return self._native.tier_blob(
                 serialize_requests(requests), len(requests), self._kind_block_lut,
-                self.value_cache,
+                self.value_cache, narrow=self._narrow_rows(len(requests)),
             )
         if self._native.available:
             tensors = self._native.tensorize(requests)
@@ -749,7 +851,8 @@ class WafEngine:
             # staging buffers, two GIL-released native calls with only the
             # value-cache probe in Python between them.
             tiers, numvals, masks, cached, mkeys, lease = self._native.tier_blob(
-                blob, n_req, self._kind_block_lut, self.value_cache
+                blob, n_req, self._kind_block_lut, self.value_cache,
+                narrow=self._narrow_rows(n_req),
             )
         else:
             tensors = self._native.tensorize_blob(blob, n_req)
@@ -864,6 +967,7 @@ class WafEngine:
                 finals_columns=sum(cols),
             )
         *match, post = stage_specs(self.model, tiers, numvals, masks, cached, max_phase)
+        seg_rows, seg_col_rows = self._seg_work(tiers, masks, n_requests)
         # On the card each stage's device work is bracketed by two CUDA
         # events on the stream it runs on, outside its graph; collect reads
         # them after its read-back (_device_intervals).
@@ -894,7 +998,25 @@ class WafEngine:
             cache_pop=cached is not None,
             spans=spans,
             events=events,
+            seg_rows=seg_rows,
+            seg_col_rows=seg_col_rows,
         )
+
+    def _seg_work(self, tiers, masks, n_requests: int) -> tuple[int, int]:
+        """(matcher rows, the sum over segment blocks of rows convolved x
+        columns) of a window's tiers: a tier's real unique rows (those its
+        live pairs read; padding and value-cache rows apart) meet every
+        segment block its partition mask scans."""
+        rows = col_rows = 0
+        for t, m in zip(tiers, masks):
+            uid, rid = t[8], t[5]
+            n = np.unique(uid[(rid < n_requests) & (uid < t[0].shape[0])]).size
+            cols = self._seg_cols.get(m)
+            if cols is None:
+                cols = self._seg_cols[m] = seg_columns(self.model, m)
+            rows += n
+            col_rows += n * cols
+        return rows, col_rows
 
     def _stage(self, label: str, fn, args: tuple, statics: dict, dyn: dict, events=None,
                stream: int = 0):

@@ -25,7 +25,9 @@ TF32 setting.
 
 from __future__ import annotations
 
+import dataclasses
 import os as _os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -41,9 +43,19 @@ from ..compiler.ruleset import (
     LINK_NEVER,
     LINK_NUMERIC,
     LINK_STRING,
+    SCALARS,
 )
-from ..compiler.segments import plan_segments
-from ..ops.dfa import DenseTier, DFABank, build_dense_tier, scan_dense_tier, scan_dfa_bank, stack_dfas
+from ..compiler.segments import Seg, plan_segments
+from ..ops.dfa import (
+    _DENSE_MAX_STATES,
+    DenseTier,
+    DFABank,
+    _dense_dtype,
+    build_dense_tier,
+    scan_dense_tier,
+    scan_dfa_bank,
+    stack_dfas,
+)
 from ..ops.dfa_flat import build_flat_bank, plan_flat_bins, scan_flat_bank
 from ..ops.dfa_gather import (
     GatherBank,
@@ -82,7 +94,6 @@ _STATE_BUCKETS = (32, 256, 2048, 16384, 65536)
 # with it every row's tier — matches the reference.
 _PALLAS_VMEM_BUDGET = 11 * 2**20
 _PALLAS_BLOCK_B = 128
-
 
 def _state_bucket(n_states: int) -> int:
     return next(b for b in _STATE_BUCKETS if n_states <= b)
@@ -166,10 +177,17 @@ class WafModel:
     # launch per tier.
     gather_tier: GatherTier | None = field(default=None, init=False, repr=False, compare=False)
     pre_tier: DenseTier | None = field(default=None, init=False, repr=False, compare=False)
+    # Segment blocks split off for single-valued kinds (plan_segment_blocks):
+    # the second block of a pipeline, among the first 62 blocks (those a
+    # partition mask names). The engine keeps the rows that cannot reach
+    # them in a partition of their own.
+    narrow_blocks: tuple = field(default=(), init=False)
 
     def __post_init__(self):
         self.numvar_col = self.e_numvar.argmax(dim=0)
         self.counter_col = self.e_counter.argmax(dim=0)
+        sp = self.seg_pipelines
+        self.narrow_blocks = tuple(i for i in range(1, min(62, len(sp))) if sp[i] == sp[i - 1])
         if self.seg_perm is not None:
             # seg column c reads long column long_col[c]
             self.long_col = self.seg_perm.to(torch.int32).argmax(dim=0)
@@ -199,19 +217,22 @@ def lgroup_onehot(lgroup: np.ndarray, n_groups: int) -> np.ndarray:
     return e_lg
 
 
-def build_model(
-    crs: CompiledRuleSet, automata=None, device=None, dfa_banks: bool = True
-) -> WafModel:
-    """Lay out a CompiledRuleSet as tensors on ``device`` (``cuda`` unless
-    the caller passes ``device="cpu"``). Groups are re-ordered exactly as
-    the reference orders them: segment blocks by pipeline, then DFA
-    buckets by (pipeline, bucket), then gather banks, then prefilter
-    banks. ``automata`` (an ``AutomataPlan`` or None) turns on the
-    two-level automata layout (hot-tier gather banks and approximate
-    prefilter banks). ``dfa_banks=False`` routes the DFA buckets' groups
-    but builds neither their banks nor the flat bins over them (the
-    sharded model builds its own slices of those buckets)."""
-    device = resolve_device(device)
+@dataclass
+class LayoutPlan:
+    """Where ``build_model`` puts each group (``plan_layout``)."""
+
+    seg_groups: dict  # pipeline -> [(gid, SegmentPlan)]
+    buckets: dict  # (pipeline, state bucket) -> [gid]: generic DFA banks
+    hot_buckets: dict  # the same for dfa-hot gather banks
+    pre_buckets: dict  # the same for prefilter banks (approximate DFAs)
+    approx_of: dict  # gid -> its approximate DFA
+    gkind_sets: list  # gid -> the kinds its string links include
+    scalar_kinds: frozenset  # kinds of single-valued variables
+
+
+def plan_layout(crs: CompiledRuleSet, automata=None) -> LayoutPlan:
+    """Route every group to its matcher tier (``build_model`` then splits
+    the segment groups into blocks, ``plan_segment_blocks``)."""
     seg_groups: dict[int, list[tuple[int, object]]] = {}
     buckets: dict[tuple[int, int], list[int]] = {}
     hot_buckets: dict[tuple[int, int], list[int]] = {}
@@ -235,30 +256,133 @@ def build_model(
             ).append(gid)
             continue
         buckets.setdefault((pid, _state_bucket(grp.dfa.n_states)), []).append(gid)
+    gkind_sets: list[set[int]] = [set() for _ in range(max(1, len(crs.groups)))]
+    for link in crs.links:
+        if link.link_type == LINK_STRING and link.group >= 0:
+            gkind_sets[link.group].update(link.include_kinds)
+    scalar = frozenset(kid for (coll, sel), kid in crs.vocab.kinds.items()
+                       if coll in SCALARS and sel is None)
+    return LayoutPlan(seg_groups, buckets, hot_buckets, pre_buckets, approx_of, gkind_sets,
+                      scalar)
 
-    remap = np.zeros(max(1, len(crs.groups)), dtype=np.int64)
-    next_new = 0
-    segs: list[SegmentBlock] = []
-    seg_pipelines: list[int] = []
+
+def _plan_cols(items) -> int:
+    """Conv columns of segment groups, counted from their plans: one per
+    segment of each branch."""
+    return sum(max(1, sum(isinstance(el, Seg) for br in plan.branches for el in br.elements))
+               for _gid, plan in items)
+
+
+def plan_segment_blocks(seg_groups: dict, gkind_sets: list, scalar_kinds: frozenset,
+                        row_cost: float) -> list:
+    """Segment blocks as ``(pipeline, items)``, in pipeline order: one per
+    pipeline, or two where a narrow block pays (the second).
+
+    Every row whose kinds reach a block is convolved against all of its
+    columns, and at serving windows every row reaches every block (small
+    partitions merge, ``engine/waf.py::tier_tensors``). A pipeline's
+    largest set of groups whose kinds are one set of single-valued kinds
+    (scalar variables: at most one row each per request) can form a narrow
+    block of its own, after the pipeline's other groups; the engine then
+    keeps every row that cannot reach it in a partition apart. Per request,
+    counting one row for each of the block's other kinds, that takes the
+    set's columns off those rows. It costs a second partition, which holds
+    at most one row per request for each of the set's kinds, is bucketed at
+    that bound, and scans every block: ``row_cost`` (the model's
+    ``block_cost`` summed, the segment blocks' columns counted from their
+    plans) for each of them. The set is split off only when the first
+    outweighs the second. (crs-lite's largest candidate, RESPONSE_BODY's
+    176 columns in ``t:none`` beside 23 other kinds, saves 4,048 against a
+    row cost of ~10,700, so crs-lite keeps one block per pipeline.)"""
+    out = []
     for pid in sorted(seg_groups):
         items = seg_groups[pid]
-        segs.append(build_segment_block([plan for _, plan in items], device=device))
-        seg_pipelines.append(pid)
-        for g, _ in items:
-            remap[g] = next_new
-            next_new += 1
+        kinds: set[int] = set()
+        by_kinds: dict[frozenset, list] = {}
+        for gid, plan in items:
+            ks = frozenset(gkind_sets[gid])
+            kinds |= ks
+            if ks and ks <= scalar_kinds:
+                by_kinds.setdefault(ks, []).append((gid, plan))
+        narrow_kinds, narrow = max(by_kinds.items(), key=lambda kv: _plan_cols(kv[1]),
+                                   default=(frozenset(), []))
+        picked = {gid for gid, _plan in narrow}
+        rest = [(gid, plan) for gid, plan in items if gid not in picked]
+        saving = _plan_cols(narrow) * len(kinds - narrow_kinds)
+        if rest and narrow and saving > len(narrow_kinds) * row_cost:
+            out += [(pid, rest), (pid, narrow)]
+        else:
+            out.append((pid, items))
+    return out
 
-    banks: list[DFABank] = []
+
+def _bank_costs(bank_dfas, covered, gather_banks, pre_banks) -> list[float]:
+    """The reference's per-row cost of each non-segment block, in block
+    order: generic DFA banks, given as the DFAs ``stack_dfas`` stacks
+    (``covered`` holds the indexes of those a flat bin scans), gather banks,
+    prefilter banks."""
+    costs: list[float] = []
+    for bi, dfas in enumerate(bank_dfas):
+        s, g = max(d.n_states for d in dfas), len(dfas)
+        if bi in covered:
+            costs.append(0.5 * s * g)
+        elif s > _DENSE_MAX_STATES:  # no dense table
+            costs.append(1000.0 * g)
+        elif (
+            _pallas_vmem_bytes(s, g, np.dtype(_dense_dtype(s)).itemsize, 64)
+            <= _PALLAS_VMEM_BUDGET
+        ):
+            costs.append(0.5 * s * max(g, 128))
+        else:
+            costs.append(8.0 * s * g)
+    for gb in gather_banks:
+        factor = max(0.1, gb.n_classes / 256.0)
+        costs.append(0.5 * factor * gb.n_states * max(gb.n_groups, 128))
+    for pb in pre_banks:
+        s, g = pb.n_states, pb.n_groups
+        costs.append(0.5 * s * max(g, 128))
+    return costs
+
+
+def build_model(
+    crs: CompiledRuleSet, automata=None, device=None, dfa_banks: bool = True,
+    plan: LayoutPlan | None = None, timings: dict | None = None,
+) -> WafModel:
+    """Lay out a CompiledRuleSet as tensors on the host, then move them to
+    ``device`` (``cuda`` unless the caller passes ``device="cpu"``) in one
+    pass; ``timings``, when given, receives that move's seconds as
+    ``upload``. Groups are re-ordered exactly as the reference orders them:
+    segment blocks by pipeline (a pipeline's narrow block after its other
+    one, ``plan_segment_blocks``), then DFA buckets by (pipeline, bucket),
+    then gather banks, then prefilter banks. ``automata`` (an
+    ``AutomataPlan`` or None) turns on the two-level automata layout
+    (hot-tier gather banks and approximate prefilter banks); ``plan`` is
+    ``plan_layout(crs, automata)``'s, made here when None.
+    ``dfa_banks=False`` routes the DFA buckets' groups but keeps neither
+    their banks nor the flat bins over them (the sharded model builds its
+    own slices of those buckets)."""
+    device = resolve_device(device)
+    host = torch.device("cpu")
+    if plan is None:
+        plan = plan_layout(crs, automata)
+    seg_groups, buckets, hot_buckets = plan.seg_groups, plan.buckets, plan.hot_buckets
+    pre_buckets, approx_of, gkind_sets = plan.pre_buckets, plan.approx_of, plan.gkind_sets
+
+    # The other tiers' blocks first: their groups' columns follow every
+    # segment group's, and the segment blocks' split weighs their costs.
+    remap = np.zeros(max(1, len(crs.groups)), dtype=np.int64)
+    n_seg_groups = sum(len(v) for v in seg_groups.values())
+    next_new = n_seg_groups
+
     bank_pipelines: list[int] = []
     bank_gids: list[list[int]] = []
     for (pid, _bucket), gids in sorted(buckets.items()):
-        if dfa_banks:
-            banks.append(stack_dfas([crs.groups[g].dfa for g in gids], device=device))
-            bank_pipelines.append(pid)
-            bank_gids.append(list(gids))
+        bank_pipelines.append(pid)
+        bank_gids.append(list(gids))
         for g in gids:
             remap[g] = next_new
             next_new += 1
+    bank_dfas = [[crs.groups[g].dfa for g in gids] for gids in bank_gids]
 
     gather_banks: list[GatherBank] = []
     gather_bank_pipelines: list[int] = []
@@ -268,7 +392,7 @@ def build_model(
         for bin_ in plan_gather_bins(dfas):
             members = [gids[i] for i in bin_]
             gather_banks.append(
-                stack_gather_bank([crs.groups[g].dfa for g in members], device=device)
+                stack_gather_bank([crs.groups[g].dfa for g in members], device=host)
             )
             gather_bank_pipelines.append(pid)
             gather_bank_gids.append(members)
@@ -281,7 +405,7 @@ def build_model(
     pre_bank_gids: list[list[int]] = []
     prefilter_cols: list[tuple[int, int]] = []
     for (pid, _bucket), gids in sorted(pre_buckets.items()):
-        pre_banks.append(stack_dfas([approx_of[g] for g in gids], device=device))
+        pre_banks.append(stack_dfas([approx_of[g] for g in gids], device=host))
         pre_bank_pipelines.append(pid)
         pre_bank_gids.append(list(gids))
         for g in gids:
@@ -290,21 +414,37 @@ def build_model(
             next_new += 1
 
     # Flat-slot fused bins (CKO_FLAT=0 keeps every generic bank on its own
-    # scan). The planner keeps the reference's budgets, so the bins — and
-    # the column order match_tier stitches — equal the reference's.
+    # scan), planned over bank indexes. The planner keeps the reference's
+    # budgets, so the bins — and the column order match_tier stitches —
+    # equal the reference's.
+    bins: list = []
+    if _os.environ.get("CKO_FLAT", "1") != "0" and bank_dfas:
+        bins, _rejected = plan_flat_bins([
+            (bi, bank_pipelines[bi], dfas) for bi, dfas in enumerate(bank_dfas)
+        ])
+    covered = {piece[0] for bn in bins for piece in bn}
+    row_cost = sum(_plan_cols(v) for v in seg_groups.values()) + sum(
+        _bank_costs(bank_dfas, covered, gather_banks, pre_banks))
+    if not dfa_banks:
+        bank_pipelines, bank_gids, bank_dfas, bins, covered = [], [], [], [], set()
+    banks: list[DFABank] = [stack_dfas(dfas, device=host) for dfas in bank_dfas]
+
+    seg_blocks = plan_segment_blocks(seg_groups, gkind_sets, plan.scalar_kinds, row_cost)
+    next_new = 0
+    segs: list[SegmentBlock] = []
+    seg_pipelines: list[int] = []
+    for pid, items in seg_blocks:
+        segs.append(build_segment_block([p for _, p in items], device=host))
+        seg_pipelines.append(pid)
+        for g, _ in items:
+            remap[g] = next_new
+            next_new += 1
     n_segs_blocks = len(segs)
-    flat_banks_built: list = []
-    flat_covered: set[int] = set()
-    if _os.environ.get("CKO_FLAT", "1") != "0" and banks:
-        bank_dfas = [
-            (n_segs_blocks + bi, bank_pipelines[bi], [crs.groups[g].dfa for g in bank_gids[bi]])
-            for bi in range(len(banks))
-        ]
-        bins, _rejected = plan_flat_bins(bank_dfas)
-        for bn in bins:
-            flat_banks_built.append(build_flat_bank(bn, device=device))
-            for block_idx, _pid, _glo, _ghi, _ds in bn:
-                flat_covered.add(block_idx)
+    flat_banks_built = [
+        build_flat_bank([(n_segs_blocks + bi, *rest) for bi, *rest in bn], device=host)
+        for bn in bins
+    ]
+    flat_covered = {n_segs_blocks + bi for bi in covered}
 
     long_banks: list[DFABank] = []
     long_bank_pipelines: list[int] = []
@@ -316,7 +456,7 @@ def build_model(
                 key = (pid, _state_bucket(crs.groups[gid].dfa.n_states))
                 long_buckets.setdefault(key, []).append(gid)
         for (pid, _bucket), gids in sorted(long_buckets.items()):
-            long_banks.append(stack_dfas([crs.groups[g].dfa for g in gids], device=device))
+            long_banks.append(stack_dfas([crs.groups[g].dfa for g in gids], device=host))
             long_bank_pipelines.append(pid)
             long_order.extend(gids)
     n_seg_groups = sum(len(v) for v in seg_groups.values())
@@ -424,52 +564,19 @@ def build_model(
 
     # Kind-partitioned matching constants, computed as the reference does
     # (the costs only rank blocks for tier_tensors' clustering).
-    gkind_sets: list[set[int]] = [set() for _ in range(max(1, len(crs.groups)))]
-    for link in crs.links:
-        if link.link_type == LINK_STRING and link.group >= 0:
-            gkind_sets[link.group].update(link.include_kinds)
     block_kinds: list[tuple[int, ...]] = []
-    block_cost: list[float] = []
-    for pid in sorted(seg_groups):
+    for _pid, items in seg_blocks:
         ks: set[int] = set()
-        for gid, _plan in seg_groups[pid]:
+        for gid, _plan in items:
             ks |= gkind_sets[gid]
         block_kinds.append(tuple(sorted(ks)))
-    for seg in segs:
-        block_cost.append(float(conv_n2_cols(seg.spec)))
-    for gids in bank_gids:
+    for gids in bank_gids + gather_bank_gids + pre_bank_gids:
         ks = set()
         for gid in gids:
             ks |= gkind_sets[gid]
         block_kinds.append(tuple(sorted(ks)))
-    for bi, bank in enumerate(banks):
-        s, g = bank.n_states, bank.n_groups
-        if n_segs_blocks + bi in flat_covered:
-            block_cost.append(0.5 * s * g)
-        elif bank.t256.numel() == 0:
-            block_cost.append(1000.0 * g)
-        elif (
-            _pallas_vmem_bytes(s, g, bank.t256.element_size(), 64) <= _PALLAS_VMEM_BUDGET
-        ):
-            block_cost.append(0.5 * s * max(g, 128))
-        else:
-            block_cost.append(8.0 * s * g)
-    for members in gather_bank_gids:
-        ks = set()
-        for gid in members:
-            ks |= gkind_sets[gid]
-        block_kinds.append(tuple(sorted(ks)))
-    for gb in gather_banks:
-        factor = max(0.1, gb.n_classes / 256.0)
-        block_cost.append(0.5 * factor * gb.n_states * max(gb.n_groups, 128))
-    for members in pre_bank_gids:
-        ks = set()
-        for gid in members:
-            ks |= gkind_sets[gid]
-        block_kinds.append(tuple(sorted(ks)))
-    for pb in pre_banks:
-        s, g = pb.n_states, pb.n_groups
-        block_cost.append(0.5 * s * max(g, 128))
+    block_cost = [float(conv_n2_cols(seg.spec)) for seg in segs]
+    block_cost += _bank_costs(bank_dfas, covered, gather_banks, pre_banks)
     n_g = len(crs.groups)
     order_arr = np.zeros(n_g, dtype=np.int64)
     order_arr[remap[:n_g]] = np.arange(n_g, dtype=np.int64)
@@ -482,9 +589,9 @@ def build_model(
     )
 
     def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+        return torch.as_tensor(np.ascontiguousarray(a), device=host)
 
-    return WafModel(
+    model = WafModel(
         banks=banks,
         segs=segs,
         ltype=put(ltype),
@@ -536,6 +643,62 @@ def build_model(
         pre_bank_pipelines=tuple(pre_bank_pipelines),
         prefilter_cols=tuple(prefilter_cols),
     )
+    if device != host:
+        t0 = time.monotonic()
+        model = _to_device(model, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if timings is not None:
+            timings["upload"] = time.monotonic() - t0
+    stray = [t.device for t in _tensors(model)
+             if t.device.type != device.type or device.index not in (None, t.device.index)]
+    if stray:
+        raise AssertionError(f"build_model left tensors on {stray[0]}, not {device}")
+    return model
+
+
+def _to_device(v, device):
+    """``v`` with every tensor it holds moved to ``device``: dataclasses
+    (rebuilt from their init fields, so derived fields are made there and
+    caches start empty), tuples, lists and dicts are walked."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return dataclasses.replace(v, **{f.name: _to_device(getattr(v, f.name), device)
+                                         for f in dataclasses.fields(v) if f.init})
+    if isinstance(v, (tuple, list)):
+        return type(v)(_to_device(x, device) for x in v)
+    if isinstance(v, dict):
+        return {k: _to_device(x, device) for k, x in v.items()}
+    return v
+
+
+def _tensors(v):
+    """Every tensor ``v`` holds, walked as ``_to_device`` walks it."""
+    if isinstance(v, torch.Tensor):
+        yield v
+    elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+        for f in dataclasses.fields(v):
+            if f.init:
+                yield from _tensors(getattr(v, f.name))
+    elif isinstance(v, (tuple, list)):
+        for x in v:
+            yield from _tensors(x)
+    elif isinstance(v, dict):
+        for x in v.values():
+            yield from _tensors(x)
+
+
+def table_bytes(model) -> int:
+    """Bytes of the tensors ``model`` holds, its banks' included."""
+    return sum(t.numel() * t.element_size() for t in _tensors(model))
+
+
+def seg_columns(model: WafModel, mask: int | None) -> int:
+    """Conv columns a row of a tier with kind-partition ``mask`` is
+    convolved against: those of every segment block the mask scans."""
+    return sum(conv_n2_cols(seg.spec) for i, seg in enumerate(model.segs)
+               if mask is None or i >= 62 or (mask >> i) & 1)
 
 
 def segment_tier_hits(

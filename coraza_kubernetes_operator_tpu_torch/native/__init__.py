@@ -463,6 +463,7 @@ from ..engine.waf import (  # noqa: E402
     _TIER_PARTS,
     _bucket,
     _bucket_rows,
+    part_rows,
 )
 
 _BOUNDS_ARR = np.asarray(_TIER_BOUNDS, dtype=np.int64)
@@ -557,7 +558,8 @@ class NativeTensorizer:
             raise RuntimeError("native tensorize failed (malformed batch blob)")
         return self._export(res, n_req)
 
-    def tier_blob(self, blob, n_req: int, kind_lut, cache=None):
+    def tier_blob(self, blob, n_req: int, kind_lut, cache=None,
+                  narrow: tuple[int, int] = (0, 0)):
         """The one-call window pipeline: raw request blob -> tier-bucketed,
         value-dedup'd, dispatch-ready tensors written into staging-arena
         buffers. Parse, extraction, transforms, tier assignment, kind
@@ -570,7 +572,7 @@ class NativeTensorizer:
         the first five bit-identical to ``WafEngine.tier_cached(
         tensorize_blob(blob, n_req))``, plus the arena lease the caller
         releases once the window's device step has consumed the host
-        buffers (``WafEngine.collect``)."""
+        buffers (``WafEngine.collect``). ``narrow`` is ``tier_tensors``'s."""
         assert self.tiered
         lib = self._lib
         t0 = time.perf_counter()
@@ -593,7 +595,7 @@ class NativeTensorizer:
             lut_ptr,
             lut_len,
             max_parts,
-            _MIN_PART_ROWS,
+            1 if narrow[0] else _MIN_PART_ROWS,
             _MIN_LEN,
         )
         if not plan:
@@ -638,7 +640,7 @@ class NativeTensorizer:
                     miss_lists[ti] = miss
                     miss_keys.append([ukeys[j] for j in miss])
                     cpk = np.zeros(
-                        (_bucket_rows(max(1, len(found))), cache.packed_len),
+                        (part_rows(len(found), masks[ti], narrow), cache.packed_len),
                         dtype=np.uint8,
                     )
                     for r, (_j, row) in enumerate(sorted(found.items())):
@@ -657,8 +659,8 @@ class NativeTensorizer:
                 n_miss = (
                     n_uniq if cache is None else len(miss_lists[ti])
                 )
-                u = _bucket_rows(max(1, n_miss))
-                p = _bucket_rows(max(1, n_pairs))
+                u = part_rows(n_miss, masks[ti], narrow)
+                p = part_rows(n_pairs, masks[ti], narrow)
                 # u_pad (found-row uid base) == the bucketed miss count.
                 dims[ti * 4 : ti * 4 + 4] = (u, p, u, n_miss)
                 shapes.append((u, length, p))

@@ -21,8 +21,13 @@ requests' ext_proc worker-pool and batcher waits, and on the card each
 stage's device interval, timed by CUDA events and put on the same clock.
 A traced request's pipeline spans are copied from its window's record and
 name the window's id; the Chrome export draws the windows and the device
-intervals as two more tracks on the requests' timeline. ``README.md``
-beside this module describes both for operators.
+intervals as two more tracks on the requests' timeline. Each record also
+counts the window's matcher rows and its segment column work (the sum over
+conv-segment blocks of rows convolved x columns), from the tiers' partition
+masks at dispatch. The **compile log** (``COMPILES``) keeps one record per
+ruleset compile behind an engine: its stages' seconds and the model's
+groups per tier, segment blocks and table bytes. ``README.md`` beside this
+module describes them for operators.
 
 Design constraints, in order:
 
@@ -47,7 +52,8 @@ Knobs (env, read at recorder construction):
   header are always recorded when the rate is > 0.
 - ``CKO_TRACE_RING`` (default 512): max completed traces retained.
 
-The window log keeps the last ``WINDOW_RING`` windows and has no knob.
+The window log keeps the last ``WINDOW_RING`` windows and the compile log
+the last 64 compiles; neither has a knob.
 """
 
 from __future__ import annotations
@@ -234,7 +240,7 @@ class WindowRecord:
 
     __slots__ = (
         "id", "t", "t_done", "n_requests", "extproc_wait_s", "batch_wait_s",
-        "spans", "device", "slack_s",
+        "spans", "device", "slack_s", "seg_rows", "seg_col_rows",
     )
 
     def __init__(self, wid: int, t: float, n_requests: int = 0,
@@ -248,6 +254,14 @@ class WindowRecord:
         self.spans: list[tuple[str, float, float]] = []
         self.device: list[tuple[str, float, float]] = []
         self.slack_s: float | None = None
+        self.seg_rows = 0
+        self.seg_col_rows = 0
+
+    @property
+    def seg_cols_per_row(self) -> float | None:
+        """Segment conv columns per matcher row: the sum over blocks of rows
+        convolved x columns, over the rows (None when no row was matched)."""
+        return self.seg_col_rows / self.seg_rows if self.seg_rows else None
 
 
 class WindowLog:
@@ -274,6 +288,12 @@ class WindowLog:
         with self._lock:
             recs = list(self._ring)
         return [r for r in recs if (t0 is None or r.t >= t0) and (t1 is None or r.t < t1)]
+
+    def seg_cols_per_row(self, last: int = 512) -> tuple[float | None, int]:
+        """(the mean of ``WindowRecord.seg_cols_per_row`` over the last
+        ``last`` records that matched rows, how many there were)."""
+        vals = [r.seg_cols_per_row for r in self.records()[-last:] if r.seg_rows]
+        return (sum(vals) / len(vals) if vals else None), len(vals)
 
     def chrome_events(self, mono0: float, ids=None) -> list[dict]:
         """The records (those in ``ids`` when given) as Chrome trace events:
@@ -306,6 +326,66 @@ class WindowLog:
 
 # The process's window log (one per process, as EXEC_CACHE is).
 WINDOWS = WindowLog()
+
+# A ruleset compile's stages, in order: the Seclang parse, the lowering to
+# links and groups (its automata apart), the automata (each string
+# operator's DFA build and minimisation), the planning (the automata tiers
+# and the groups' matcher tiers), build_model's host layout (the segment
+# blocks' split included), and the upload of the model's tensors to the
+# card.
+COMPILE_STAGES = ("parse", "lowering", "automata", "planning", "build_model", "upload")
+
+
+class CompileRecord:
+    """One ruleset compile behind a ``WafEngine``: ``t0``/``t1`` on the
+    host's monotonic clock, ``spans`` as ``(stage, seconds)`` in
+    ``COMPILE_STAGES`` order (the automata run inside the lowering, so a
+    stage is a sum of seconds, not one interval), and ``counters``: groups
+    per matcher tier, each segment block's pipeline, columns and whether it
+    is narrow, and the model's table bytes on its device."""
+
+    __slots__ = ("id", "t0", "t1", "spans", "counters")
+
+    def __init__(self, cid: int, t0: float):
+        self.id = cid
+        self.t0 = t0
+        self.t1 = t0
+        self.spans: list[tuple[str, float]] = []
+        self.counters: dict = {}
+
+    @property
+    def total_s(self) -> float:
+        return sum(s for _name, s in self.spans)
+
+    def as_dict(self) -> dict:
+        return {"id": self.id, "wall_s": self.t1 - self.t0, "spans_s": dict(self.spans),
+                "total_s": self.total_s, **self.counters}
+
+
+class CompileLog:
+    """Bounded ring of :class:`CompileRecord` s, newest last."""
+
+    def __init__(self, capacity: int = 64):
+        self._ring: "deque[CompileRecord]" = deque(maxlen=max(1, int(capacity)))
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+
+    def open(self, t0: float | None = None) -> CompileRecord:
+        return CompileRecord(next(self._ids), time.monotonic() if t0 is None else t0)
+
+    def commit(self, rec: CompileRecord) -> None:
+        with self._lock:
+            self._ring.append(rec)
+
+    def records(self, t1: float | None = None) -> list:
+        """Committed records, oldest first, ended before ``t1`` where given."""
+        with self._lock:
+            recs = list(self._ring)
+        return [r for r in recs if t1 is None or r.t1 <= t1]
+
+
+# The process's ruleset compiles (every WafEngine built in it).
+COMPILES = CompileLog()
 
 
 class TraceRecorder:

@@ -109,25 +109,24 @@ def build_sharded_model(
 
     from ..compiler.segments import plan_segments
 
-    seg_groups: dict[int, list[int]] = {}
+    seg_gids: set[int] = set()
     buckets: dict[tuple[int, int], list[int]] = {}
     for gid, grp in enumerate(crs.groups):
         pid = crs.group_pipeline[gid]
         if plan_segments(grp.dfa.ast) is not None:
-            seg_groups.setdefault(pid, []).append(gid)
+            seg_gids.add(gid)
             continue
         s = grp.dfa.n_states
         bucket = next(b for b in _STATE_BUCKETS if s <= b)
         buckets.setdefault((pid, bucket), []).append(gid)
 
+    # Segment columns in build_model's order (its blocks, narrow ones too).
     remap = np.zeros(max(1, len(crs.groups)), dtype=np.int64)
-    offset = 0
-    for pid in sorted(seg_groups):
-        for g in seg_groups[pid]:
-            remap[g] = offset
-            offset += 1
-    if tuple(sorted(seg_groups)) != base.seg_pipelines:
+    offset = sum(seg.n_groups for seg in base.segs)
+    seg_order = base.group_order[:offset]
+    if set(seg_order) != seg_gids:
         raise AssertionError("segment routing differs from build_model's")
+    remap[list(seg_order)] = np.arange(offset, dtype=np.int64)
 
     banks: list[DFABank] = []
     bank_pipelines: list[int] = []

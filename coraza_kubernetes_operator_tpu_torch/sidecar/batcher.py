@@ -1505,6 +1505,8 @@ class MicroBatcher:
                     continue
                 rec.spans += inf.spans
                 rec.device += inf.device
+                rec.seg_rows += inf.seg_rows
+                rec.seg_col_rows += inf.seg_col_rows
                 if inf.slack_s is not None:
                     rec.slack_s = max(inf.slack_s, rec.slack_s or inf.slack_s)
             WINDOWS.commit(rec)

@@ -46,6 +46,7 @@ from ..engine.request import HttpRequest
 from ..engine.waf import Verdict, WafEngine
 from ..observability import AuditLogger, MetricsRegistry, TraceRecorder
 from ..observability.audit import AuditRecord
+from ..observability.tracing import COMPILE_STAGES, WINDOWS
 from ..utils import get_logger
 from .batcher import (
     DEFAULT_MAX_BATCH_DELAY_MS,
@@ -1206,6 +1207,43 @@ class TpuEngineSidecar:
                 (lambda k: lambda: float(self._automata_count(k)))(kind),
                 kind=kind,
             )
+        # -- ruleset compile record and segment column work ----------------
+        # (observability/README.md): the default tenant's engine's compile
+        # record, and the window log's columns per matcher row.
+        m_compile = self.metrics.gauge(
+            "cko_ruleset_compile_s",
+            "Seconds of each stage of the default tenant's ruleset compile",
+            ("stage",),
+        )
+        for stage in COMPILE_STAGES:
+            m_compile.set_function(
+                (lambda st: lambda: float(self._compile_record().get("spans_s", {}).get(st, 0.0)))(stage),
+                stage=stage,
+            )
+        m_groups = self.metrics.gauge(
+            "cko_ruleset_groups",
+            "Match groups per matcher tier of the default tenant's model",
+            ("tier",),
+        )
+        for tier in ("segment", "dfa", "dfa-hot", "prefiltered"):
+            m_groups.set_function(
+                (lambda t: lambda: float(self._compile_record().get("groups_per_tier", {}).get(t, 0)))(tier),
+                tier=tier,
+            )
+        self._m_seg_block_cols = self.metrics.gauge(
+            "cko_segment_block_columns",
+            "Conv columns of each segment block of the default tenant's model",
+            ("block", "narrow"),
+        )
+        self._seg_block_labels: set = set()
+        self.metrics.gauge(
+            "cko_device_table_bytes",
+            "Bytes of the default tenant's model tables on its device",
+        ).set_function(lambda: float(self._compile_record().get("device_table_bytes", 0)))
+        self.metrics.gauge(
+            "cko_seg_cols_per_row",
+            "Segment conv columns per matcher row, mean over the last 512 windows",
+        ).set_function(lambda: float(WINDOWS.seg_cols_per_row()[0] or 0.0))
         self.metrics.gauge(
             "cko_prefilter_hits_total",
             "Device prefilter positives routed to exact confirmation",
@@ -2678,6 +2716,16 @@ class TpuEngineSidecar:
             return {"enabled": False, "tiers": {}, "prefilter": {}}
         return engine.automata_summary()
 
+    def _compile_record(self) -> dict:
+        """The default tenant's engine's compile record (``WafEngine.
+        compile_record``) as a dict, or {} while none is resident."""
+        rec = getattr(self.tenants.engine_for(None), "compile_record", None)
+        return rec.as_dict() if rec is not None else {}
+
+    def _segment_stats(self) -> dict:
+        per_row, windows = WINDOWS.seg_cols_per_row()
+        return {"cols_per_row": per_row, "windows": windows}
+
     def _automata_count(self, kind: str) -> int:
         return int(self._automata_summary()["tiers"].get(kind, 0))
 
@@ -2696,6 +2744,14 @@ class TpuEngineSidecar:
         if self.scheduler is not None:
             for knob, count in self.scheduler.retunes_total.items():
                 self._m_sched_retunes.set(float(count), knob=knob)
+        # Blocks of an engine a reload replaced read 0.
+        blocks = {(str(i), str(b["narrow"]).lower()): float(b["columns"]) for i, b in
+                  enumerate(self._compile_record().get("segment_blocks", ()))}
+        for key in self._seg_block_labels - set(blocks):
+            self._m_seg_block_cols.set(0.0, block=key[0], narrow=key[1])
+        for (block, narrow), cols in blocks.items():
+            self._m_seg_block_cols.set(cols, block=block, narrow=narrow)
+        self._seg_block_labels |= set(blocks)
         return self.metrics.render()
 
     def stats(self) -> dict:
@@ -2757,6 +2813,8 @@ class TpuEngineSidecar:
             "resident_engines": self.tenants.resident_engines(),
             "engine_dedup_hits": self.tenants.engine_dedup_hits,
             "automata": self._automata_summary(),
+            "compile": self._compile_record(),
+            "segment_columns": self._segment_stats(),
             "native": self._native_summary(),
             "analysis": {
                 "cko_analysis_findings_total": self.tenants.analysis_counts(),
