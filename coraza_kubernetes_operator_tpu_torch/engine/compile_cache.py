@@ -12,7 +12,8 @@ them with no Python and one launch from the host.
 
 1. **Keys** (:meth:`ExecutableCache.key_for`): the stage function's name,
    its arguments' signatures (a model's layout digest, each tensor's
-   shape and dtype, the ``cached`` rows' shapes or None per tier), its
+   shape and dtype, the ``cached`` rows' shapes or None per tier: padded
+   to the tier's pair rows, ``stage_specs``), its
    static arguments (the kind mask, the phase bound) and
    ``CKO_PALLAS_FINALS``, which is read per call and changes the matcher's
    program. :func:`batch_signature` is a window's tuple of stage keys.
@@ -101,10 +102,13 @@ _HOST_META = frozenset({"block_kinds", "block_cost", "narrow_blocks"})
 
 # Graphs resident per model. A window holds one matcher graph per tier
 # (one to five) and one post graph; a model that serves the Python path,
-# the blob path and small sidecar windows sees tens of signatures. The
-# graphs share their model's pool, so the bound limits the graph
-# executables and their static buffers, not the pool's peak.
-MAX_GRAPHS = 64
+# the blob path and sidecar windows of every size from one request (an
+# idle lane closes its window at once) to a backlog sees on the order of
+# a hundred signatures, and a bound below that evicts and recaptures
+# through the whole run. The graphs share their model's pool, so the
+# bound limits the graph executables and their static buffers, not the
+# pool's peak.
+MAX_GRAPHS = 256
 # Keys remembered per model (seen once, or holding a graph).
 MAX_ENTRIES = 8 * MAX_GRAPHS
 
@@ -189,8 +193,29 @@ def stage_specs(model: WafModel, tiers, numvals, masks, cached, max_phase: int):
     hits = tuple(np.zeros((t[0].shape[0], pb), dtype=np.uint8) for t in tiers)
     pairs = tuple(tuple(t[i] for i in (2, 3, 4, 5, 8)) for t in tiers)
     post = ("post", eval_post_tiered, (model, hits, pairs, numvals),
-            {"max_phase": max_phase}, {"cached": cached})
+            {"max_phase": max_phase}, {"cached": _cached_in_pairs(cached, tiers)})
     return match + [post]
+
+
+def _cached_in_pairs(cached, tiers):
+    """Each tier's value-cache rows padded to its pair rows' bucket (a
+    tier never has more cached unique rows than pairs). The post stage's
+    key then holds no shape of its own for them: it no longer moves with
+    the cache's hit ratio as the cache fills, nor splits windows of one
+    pairs bucket into several by how many of their rows were cached.
+    The padding rows are zero and no pair's uid reaches them."""
+    if cached is None:
+        return None
+    out = []
+    for c, t in zip(cached, tiers):
+        p = t[5].shape[0]
+        if c is None or c.shape[0] >= p:
+            out.append(c)
+        else:
+            full = np.zeros((p,) + c.shape[1:], dtype=c.dtype)
+            full[: c.shape[0]] = c
+            out.append(full)
+    return tuple(out)
 
 
 def batch_signature(model: WafModel, tiers, numvals, masks, cached, max_phase: int) -> tuple:

@@ -236,21 +236,25 @@ class WindowRecord:
     ext_proc worker and from submit to ``t``. ``device`` holds ``(stage,
     t0, t1)``, each stage's device interval from CUDA events, on the card
     only; ``slack_s`` is how far apart the two bounds that placed them on
-    the host clock were (``engine/waf.py::_device_intervals``)."""
+    the host clock were (``engine/waf.py::_device_intervals``). ``close``
+    says why the batcher closed it (``sidecar/batcher.py::CLOSE_REASONS``:
+    ``idle``, ``delay``, ``size`` or ``blob``), None where no batcher did."""
 
     __slots__ = (
         "id", "t", "t_done", "n_requests", "extproc_wait_s", "batch_wait_s",
-        "spans", "device", "slack_s", "seg_rows", "seg_col_rows",
+        "spans", "device", "slack_s", "seg_rows", "seg_col_rows", "close",
     )
 
     def __init__(self, wid: int, t: float, n_requests: int = 0,
-                 extproc_wait_s: float = 0.0, batch_wait_s: float = 0.0):
+                 extproc_wait_s: float = 0.0, batch_wait_s: float = 0.0,
+                 close: str | None = None):
         self.id = wid
         self.t = t
         self.t_done = t
         self.n_requests = n_requests
         self.extproc_wait_s = extproc_wait_s
         self.batch_wait_s = batch_wait_s
+        self.close = close
         self.spans: list[tuple[str, float, float]] = []
         self.device: list[tuple[str, float, float]] = []
         self.slack_s: float | None = None
@@ -276,8 +280,8 @@ class WindowLog:
         self._ids = itertools.count(1)
 
     def open(self, t: float, n_requests: int = 0, extproc_wait_s: float = 0.0,
-             batch_wait_s: float = 0.0) -> WindowRecord:
-        return WindowRecord(next(self._ids), t, n_requests, extproc_wait_s, batch_wait_s)
+             batch_wait_s: float = 0.0, close: str | None = None) -> WindowRecord:
+        return WindowRecord(next(self._ids), t, n_requests, extproc_wait_s, batch_wait_s, close)
 
     def commit(self, rec: WindowRecord) -> None:
         with self._lock:
@@ -316,6 +320,8 @@ class WindowLog:
                     "batch_wait_ms": r.batch_wait_s * 1e3}
             if r.slack_s is not None:
                 args["device_slack_ms"] = r.slack_s * 1e3
+            if r.close is not None:
+                args["close"] = r.close
             out.append(ev("window", r.t, r.t_done, "window", args))
             for name, t0, t1 in r.spans:
                 out.append(ev(name, t0, t1, "window", {"window": r.id}))

@@ -2,8 +2,11 @@
 
 Requests arriving within one batching window are evaluated in a single
 device step. The window closes on whichever comes first: ``max_batch_size``
-requests buffered, or ``max_batch_delay_ms`` elapsed since the first request
-of the window — the batch-fill-vs-p99-deadline scheduler from SURVEY §7.4.
+requests buffered, ``max_batch_delay_ms`` elapsed since the first request
+of the window (the cap on the added wait), or its lane having no window in
+flight — group commit: a lane with nothing dispatched takes what its queue
+holds and goes at once, and a busy lane batches behind its in-flight
+window until the collector hands that window's slot back.
 
 The reference has no analog (Envoy evaluates per request inside the WASM
 module); batching is the accelerator-shaped redesign: the device wants
@@ -17,7 +20,10 @@ its device step while window N's executable is still running on device;
 a dedicated collector thread drains in-flight windows in STRICT dispatch
 order (FIFO — verdicts are never reordered) and resolves their futures.
 In-flight depth is bounded (``CKO_PIPELINE_DEPTH``, default 2 — classic
-double buffering), so the existing backpressure path still engages: when
+double buffering). Under the idle-lane close rule a lane overlaps two
+windows only when one reaches its size or delay cap while the other is in
+flight (overload); otherwise the next window closes as the previous one is
+collected. The bound keeps the existing backpressure path: when
 the device falls behind, windows queue in the submit queue, ``pending()``
 grows, and the server's admission control sheds with 429.
 
@@ -82,6 +88,41 @@ LANE_BULK = "bulk"
 LANES = (LANE_INTERACTIVE, LANE_BULK)
 
 
+# Why a window closed (``WindowRecord.close``, ``BatcherStats.closes``):
+# its lane had nothing in flight, its delay passed (or stop() cut it
+# short), it held ``max_batch_size`` requests, or it is a pre-assembled
+# blob window (or a per-request window a queued blob window closed, to
+# keep FIFO order).
+CLOSE_IDLE, CLOSE_DELAY, CLOSE_SIZE, CLOSE_BLOB = "idle", "delay", "size", "blob"
+CLOSE_REASONS = (CLOSE_IDLE, CLOSE_DELAY, CLOSE_SIZE, CLOSE_BLOB)
+
+
+# A readback wait that wakes more than this late found the process itself
+# stalled (a thread holding the interpreter in native code, a paused
+# process); the window deadline does not charge that time to the device.
+_STALL_TICK_S = 0.25
+
+
+def _wait_running(done: threading.Event, budget: float) -> bool:
+    """Wait for ``done`` up to ``budget`` seconds in which this process
+    ran. The wait goes in ticks; a tick that wakes more than a tick late
+    extends the budget by its lateness, so a stall of the whole process,
+    in which neither the readback nor this wait could run, is not counted
+    against the device. A device that hangs while the process runs meets
+    the deadline on time."""
+    end = time.monotonic() + budget
+    while True:
+        t = time.monotonic()
+        step = min(_STALL_TICK_S, end - t)
+        if step <= 0:
+            return done.is_set()
+        if done.wait(timeout=step):
+            return True
+        late = time.monotonic() - t - step
+        if late > _STALL_TICK_S:
+            end += late
+
+
 def classify_lane(request) -> str:
     """Lane for one request: bodied → bulk, headers-only → interactive."""
     return LANE_BULK if getattr(request, "body", b"") else LANE_INTERACTIVE
@@ -128,6 +169,11 @@ class _DepthGate:
             if self._held > 0:
                 self._held -= 1
             self._cv.notify()
+
+    def idle(self) -> bool:
+        """True while no slot is held: the lane has nothing in flight."""
+        with self._cv:
+            return self._held == 0
 
 
 class _FairQueue:
@@ -187,7 +233,9 @@ class _FairQueue:
                 self._size += 1
             self._cv.notify()
 
-    def get(self, timeout: float | None = None):
+    def get(self, timeout: float | None = None, until=None):
+        """``until()``, when given, ends an empty wait early (raising
+        ``queue.Empty``); whoever makes it true calls ``wake()``."""
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cv:
             while True:
@@ -195,6 +243,8 @@ class _FairQueue:
                     return self._control.popleft()
                 if self._size > 0:
                     return self._pop_locked()
+                if until is not None and until():
+                    raise queue.Empty
                 remaining = (
                     None if deadline is None else deadline - time.monotonic()
                 )
@@ -209,6 +259,11 @@ class _FairQueue:
             if self._size > 0:
                 return self._pop_locked()
             raise queue.Empty
+
+    def wake(self) -> None:
+        """Wake a ``get`` waiting on its ``until`` predicate."""
+        with self._cv:
+            self._cv.notify_all()
 
     def qsize(self) -> int:
         with self._cv:
@@ -281,6 +336,8 @@ class BatcherStats:
     # device time.
     host_stage_s: list[float] = field(default_factory=list)
     device_stage_s: list[float] = field(default_factory=list)
+    # Dispatched windows by why they closed (CLOSE_REASONS).
+    closes: dict[str, int] = field(default_factory=lambda: dict.fromkeys(CLOSE_REASONS, 0))
     on_batch: object = None  # optional (size, latency_s, trace_id) hook for metrics
     on_stage: object = None  # optional (host_s, device_s, trace_id) hook for metrics
     _max_samples: int = 4096
@@ -327,6 +384,7 @@ class BatcherStats:
             "p99_host_stage_ms": _nearest_rank(hosts, 0.99) * 1e3,
             "p50_device_stage_ms": _nearest_rank(devs, 0.50) * 1e3,
             "p99_device_stage_ms": _nearest_rank(devs, 0.99) * 1e3,
+            "closes": dict(self.closes),
         }
 
 
@@ -409,6 +467,8 @@ class _WindowRecord:
     lane: str = LANE_BULK
     # The window's record on the window log, committed by the collector.
     log: WindowRecord | None = None
+    # Why the window closed (CLOSE_REASONS).
+    close: str = CLOSE_BLOB
 
 
 @dataclass
@@ -914,40 +974,53 @@ class MicroBatcher:
                     with self._inflight_lock:
                         self._blob_pending[lane] -= item.n_req
                         self._blob_pending_bytes[lane] -= len(item.blob)
-                    self._dispatch_or_fail(item, lane)
+                    self._dispatch_or_fail(item, lane, CLOSE_BLOB)
                     continue
                 window: list[tuple[HttpRequest, str | None, Future]] = [item]
                 # The lane delay is read at window open so a live retune
                 # (adaptive scheduler) lands on the very next window.
                 deadline = time.monotonic() + self.lane_delay_s[lane]
+                gate = self._depth_gates[lane]
+                close = CLOSE_SIZE
                 while len(window) < self.max_batch_size:
+                    # With nothing of the lane in flight there is nothing
+                    # to batch behind: take what the queue holds and go.
+                    # Otherwise fill until the delay, or until the
+                    # collector frees the lane (it wakes this queue).
+                    idle = gate.idle()
                     remaining = deadline - time.monotonic()
-                    if remaining <= 0:
+                    if not idle and remaining <= 0:
+                        close = CLOSE_DELAY
                         break
                     try:
-                        nxt = q.get(timeout=remaining)
+                        nxt = q.get_nowait() if idle else q.get(timeout=remaining, until=gate.idle)
                     except queue.Empty:
-                        break
+                        if idle:
+                            close = CLOSE_IDLE
+                            break
+                        continue
                     if nxt is None:
+                        close = CLOSE_DELAY
                         break
                     if isinstance(nxt, _BlobWindow):
                         # A blob window closes the assembling window; it
                         # dispatches on the next loop turn (FIFO kept).
                         carry = nxt
+                        close = CLOSE_BLOB
                         break
                     window.append(nxt)
-                self._dispatch_or_fail(window, lane)
+                self._dispatch_or_fail(window, lane, close)
             finally:
                 with self._inflight_lock:
                     self._windows_open -= 1
 
-    def _dispatch_or_fail(self, window, lane: str = LANE_BULK) -> None:
+    def _dispatch_or_fail(self, window, lane: str, close: str) -> None:
         """Acquire the lane's in-flight slot (bounded depth — THE
         backpressure point: while the device is ``pipeline_depth``
         windows behind, assembly blocks here, the submit queue grows,
         and admission control sheds). Depth gates are per lane, so a
         bulk flood holding its slots never blocks interactive
-        dispatch."""
+        dispatch. ``close`` is why the window closed (CLOSE_REASONS)."""
         gate = self._depth_gates[lane]
         while not gate.acquire(timeout=0.1):
             if not self._running:
@@ -966,12 +1039,14 @@ class MicroBatcher:
             self.lane_requests[lane] += (
                 window.n_req if isinstance(window, _BlobWindow) else len(window)
             )
+            self.stats.closes[close] += 1
         try:
             if isinstance(window, _BlobWindow):
                 record = self._dispatch_blob(window)
             else:
                 record = self._dispatch_window(window)
             record.lane = lane
+            record.close = close
         except BaseException:
             # _dispatch_window is defensive per group; anything escaping
             # it must still release the slot or the pipeline deadlocks.
@@ -1319,6 +1394,8 @@ class MicroBatcher:
                 with self._inflight_lock:
                     self._inflight_count -= 1
                 self._depth_gates[record.lane].release()
+                # The lane's open window may be waiting for it to go idle.
+                self._queues[record.lane].wake()
 
     # -- dispatch watchdog ---------------------------------------------------
 
@@ -1390,7 +1467,8 @@ class MicroBatcher:
         """Collect one device group's readback, supervised by the window
         deadline when armed. Raises ``WindowAbandoned`` on a blown
         deadline; the group's futures then fail with it and the server's
-        rescue paths re-answer them from host fallback."""
+        rescue paths re-answer them from host fallback. Time in which the
+        whole process stalled does not count (``_wait_running``)."""
         deadline = self._window_deadline_for(g.engine)
         if deadline is None:
             return g.engine.collect(g.inflight)
@@ -1403,7 +1481,7 @@ class MicroBatcher:
             self._spawn_readback_worker()
         job = _ReadbackJob(engine=g.engine, inflight=g.inflight)
         self._readback_q.put(job)
-        if not job.done.wait(timeout=budget):
+        if not _wait_running(job.done, budget):
             with job.lock:
                 if not job.done.is_set():
                     # Lost the race for good: park the readback and move
@@ -1834,14 +1912,14 @@ class MicroBatcher:
 
 
 def _open_log(record: _WindowRecord) -> WindowRecord:
-    """The dispatched window's record on the window log: its requests and
-    the sums of their ext_proc-worker and batcher waits (to the window's
-    close)."""
+    """The dispatched window's record on the window log: its requests, the
+    sums of their ext_proc-worker and batcher waits (to the window's
+    close), and why it closed."""
     t, w = record.t_win, record.window
     if isinstance(w, _BlobWindow):
-        return WINDOWS.open(t, w.n_req, 0.0, w.n_req * max(0.0, t - w.t_submit))
+        return WINDOWS.open(t, w.n_req, 0.0, w.n_req * max(0.0, t - w.t_submit), record.close)
     return WINDOWS.open(
-        t, len(w), sum(it[6] for it in w), sum(max(0.0, t - it[5]) for it in w)
+        t, len(w), sum(it[6] for it in w), sum(max(0.0, t - it[5]) for it in w), record.close
     )
 
 

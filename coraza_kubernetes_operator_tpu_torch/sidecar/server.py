@@ -49,6 +49,7 @@ from ..observability.audit import AuditRecord
 from ..observability.tracing import COMPILE_STAGES, WINDOWS
 from ..utils import get_logger
 from .batcher import (
+    CLOSE_REASONS,
     DEFAULT_MAX_BATCH_DELAY_MS,
     DEFAULT_MAX_BATCH_SIZE,
     LANE_BULK,
@@ -926,6 +927,16 @@ class TpuEngineSidecar:
             m_lane_requests.set_function(
                 (lambda l: lambda: float(self.batcher.lane_requests[l]))(lane),
                 lane=lane,
+            )
+        m_closes = self.metrics.gauge(
+            "cko_window_closes_total",
+            "Batch windows dispatched, by why they closed (idle lane, delay, size, blob)",
+            ("reason",),
+        )
+        for reason in CLOSE_REASONS:
+            m_closes.set_function(
+                (lambda r: lambda: float(self.batcher.stats.closes[r]))(reason),
+                reason=reason,
             )
         self._m_lane_shed = self.metrics.counter(
             "cko_lane_shed_total",

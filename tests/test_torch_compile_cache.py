@@ -9,6 +9,9 @@
   window off the device.
 - ``prewarm`` captures a batch's stages without serving a window and
   books the capture pass's seconds; the batch's next window is all hits.
+- A window's value-cache rows ride in its tiers' pair-row buckets: the
+  post stage's key does not move with how many of them there are, and
+  the padded rows change no verdict.
 - ``configure_persistent_cache`` points the kernel and native build
   directories at one place, idempotently; ``"0"`` disables.
 - Tenants on one ruleset text share one engine (``SharedEngineFactory``).
@@ -147,6 +150,47 @@ def test_signature_keys_shapes_masks_and_layout():
     assert sig == batch_signature(eng.model, as_t, torch.as_tensor(numvals), masks, cached, 2)
     other = TEngine(RULES_A + 'SecRule ARGS "@contains zz" "id:101,phase:2,deny"\n', device="cpu")
     assert sig != batch_signature(other.model, tiers, numvals, masks, cached, 2)
+
+
+def test_cached_rows_ride_in_the_pairs_bucket():
+    from coraza_kubernetes_operator_tpu_torch.engine.compile_cache import stage_specs
+    from coraza_kubernetes_operator_tpu_torch.models.waf_model import eval_post_tiered
+
+    eng = TEngine(RULES_A, device="cpu")
+    reqs = [TRequest(uri=u) for u in URIS]
+    want = [(v.status, v.rule_id) for v in eng.evaluate(reqs)]
+    tiers, numvals, masks, cached, _mk, lease = eng._batch_tensors(reqs)  # warm: rows cached
+    try:
+        assert cached is not None and any(c is not None and c.shape[0] > 1 for c in cached)
+        pairs = [t[5].shape[0] for t in tiers]
+        fewer = tuple(None if c is None else c[:1] for c in cached)
+        sig = batch_signature(eng.model, tiers, numvals, masks, cached, 2)
+        assert sig == batch_signature(eng.model, tiers, numvals, masks, fewer, 2)
+        *_match, post = stage_specs(eng.model, tiers, numvals, masks, cached, 2)
+        padded = post[4]["cached"]
+        for c, pc, p in zip(cached, padded, pairs):
+            if c is not None:
+                assert pc.shape == (p,) + c.shape[1:]
+                np.testing.assert_array_equal(pc[: c.shape[0]], c)
+                assert not pc[c.shape[0]:].any()
+        # The padded rows change no verdict: the window's hit rows from the
+        # matcher, then the post stage with the padded and the bare rows.
+        as_t = lambda x: None if x is None else torch.as_tensor(x)  # noqa: E731
+        hits = tuple(
+            fn(*(as_t(a) if isinstance(a, np.ndarray) else a for a in args), **st)
+            for _l, fn, args, st, _d in _match
+        )
+        pt = tuple(tuple(torch.as_tensor(a) for a in pr) for pr in post[2][2])
+        nv = torch.as_tensor(numvals)
+        got = [
+            eval_post_tiered(eng.model, hits, pt, nv, max_phase=2, cached=tuple(as_t(c) for c in cs))
+            for cs in (cached, padded)
+        ]
+        torch.testing.assert_close(got[0], got[1], rtol=0, atol=0)
+    finally:
+        if lease is not None:
+            lease.release()
+    assert [(v.status, v.rule_id) for v in eng.evaluate(reqs)] == want
 
 
 def test_configure_persistent_cache_is_idempotent_and_zero_disables(tmp_path, monkeypatch):

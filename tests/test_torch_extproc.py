@@ -46,7 +46,9 @@ from coraza_kubernetes_operator_tpu_torch.ops import kernels
 from coraza_kubernetes_operator_tpu_torch.sidecar import SidecarConfig as TConfig
 from coraza_kubernetes_operator_tpu_torch.sidecar import TpuEngineSidecar as TSidecar
 from coraza_kubernetes_operator_tpu_torch.sidecar import extproc as tx
+from coraza_kubernetes_operator_tpu_torch.sidecar.batcher import LANES
 from test_torch_sidecar import FIELDS, FILTER_REQUESTS, RULES, _send
+from torch_hold import lanes_held
 
 HOST = [("Host", "t")]
 
@@ -394,13 +396,13 @@ def _read_streams(client, streams, timeout_s=60.0):
 
 def test_one_worker_does_not_hold_waiting_streams(engines, monkeypatch):
     """One ext_proc worker, two streams at once: neither holds the worker
-    while it waits for its verdict, so both reach the batcher inside its
-    150 ms delay, share one window, and the window log records no wait for
-    a worker."""
+    while it waits for its verdict, so both reach the batcher while its
+    lane is held busy (within its 150 ms delay), share one window, and the
+    window log records no wait for a worker."""
     monkeypatch.setenv("CKO_EXTPROC_WORKERS", "1")
     sc = _port_sidecar(engines[1], max_batch_delay_ms=150.0)
+    futs = _record_submits(sc, monkeypatch)
     try:
-        t0 = time.monotonic()
         got = []
 
         def stream(path):
@@ -410,11 +412,13 @@ def test_one_worker_does_not_hold_waiting_streams(engines, monkeypatch):
             finally:
                 client.close()
 
-        threads = [threading.Thread(target=stream, args=(p,)) for p in ("/?a=1", "/?a=2")]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(60)
+        with lanes_held(sc.batcher, sc.tenants.engine_for(None), until=lambda: len(futs) == 2):
+            t0 = time.monotonic()
+            threads = [threading.Thread(target=stream, args=(p,)) for p in ("/?a=1", "/?a=2")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
         assert got == [200, 200]
         assert _wait(lambda: len(WINDOWS.records(t0)) >= 1, 10)
         (window,) = WINDOWS.records(t0)
@@ -427,15 +431,19 @@ def test_one_worker_does_not_hold_waiting_streams(engines, monkeypatch):
 def test_many_streams_on_one_connection_park_without_threads(engines, monkeypatch):
     """48 concurrent streams on one connection, one ext_proc worker: every
     stream is parked on its verdict at once (more than the 32 workers the
-    default pool has), and each verdict equals the HTTP frontend's."""
+    default pool has; both lanes are held busy until all 48 have reached
+    the batcher), and each verdict equals the HTTP frontend's."""
     monkeypatch.setenv("CKO_EXTPROC_WORKERS", "1")
     sc = _port_sidecar(engines[1], max_batch_delay_ms=300.0)
+    futs = _record_submits(sc, monkeypatch)
     try:
         requests = [(m, p, HOST + list(h), b) for m, p, h, b in FILTER_REQUESTS]
         requests = [requests[i % len(requests)] for i in range(48)]
         client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
         try:
-            streams = _read_streams(client, _open_streams(client, requests))
+            with lanes_held(sc.batcher, sc.tenants.engine_for(None), lanes=LANES,
+                            until=lambda: len(futs) == len(requests)):
+                streams = _read_streams(client, _open_streams(client, requests))
         finally:
             client.close()
         with ThreadPoolExecutor(len(FILTER_REQUESTS)) as pool:
@@ -452,18 +460,22 @@ def test_many_streams_on_one_connection_park_without_threads(engines, monkeypatc
         sc.stop()
 
 
-def test_coalesced_replies_keep_frames_well_formed(engines):
-    """Streams that one window completes are answered together by the
-    connection's writer: each gets its response headers, one DATA, then its
-    trailers, and the HPACK state stays in sync for the next request."""
+def test_coalesced_replies_keep_frames_well_formed(engines, monkeypatch):
+    """Streams that one window completes (they reach the batcher while its
+    lane is held busy) are answered together by the connection's writer:
+    each gets its response headers, one DATA, then its trailers, and the
+    HPACK state stays in sync for the next request."""
     sc = _port_sidecar(engines[1], max_batch_delay_ms=300.0)
+    futs = _record_submits(sc, monkeypatch)
     try:
-        t0 = time.monotonic()
         paths = ["/?q=fgfgeh", "/index.html?q=hello", "/?pet=evilpanda", "/?q=aaaaaaaad",
                  "/?q=Hello%20World", "/?a=ababc"]
         client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
         try:
-            streams = _read_streams(client, _open_streams(client, [("GET", p, HOST, b"") for p in paths]))
+            with lanes_held(sc.batcher, sc.tenants.engine_for(None),
+                            until=lambda: len(futs) == len(paths)):
+                t0 = time.monotonic()
+                streams = _read_streams(client, _open_streams(client, [("GET", p, HOST, b"") for p in paths]))
             for st in streams.values():
                 assert st["frames"] == ["headers", "data", "trailers"], st["frames"]
                 assert st["grpc_status"] == b"0"
@@ -482,19 +494,21 @@ def test_coalesced_replies_keep_frames_well_formed(engines):
 
 def test_verdict_timeout_answered_by_the_reaper(engines):
     """A parked stream whose verdict misses the request timeout (the
-    batcher holds its window for 5 s) gets the failure-policy reply when
-    the timeout passes, as the HTTP frontend answers it."""
+    batcher's lane is held busy, so its window stays open, for up to its
+    5 s delay) gets the failure-policy reply when the timeout passes, as
+    the HTTP frontend answers it."""
     sc = _port_sidecar(engines[1], max_batch_delay_ms=5000.0, request_timeout_s=0.3,
                        compile_timeout_s=0.3)
     try:
-        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
-        try:
-            t0 = time.monotonic()
-            got = client.filter("GET", "/?q=fgfgeh", HOST, b"")
-            waited = time.monotonic() - t0
-        finally:
-            client.close()
-        http = _send(sc.port, "GET", "/?q=fgfgeh", HOST)
+        with lanes_held(sc.batcher, sc.tenants.engine_for(None)):
+            client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+            try:
+                t0 = time.monotonic()
+                got = client.filter("GET", "/?q=fgfgeh", HOST, b"")
+                waited = time.monotonic() - t0
+            finally:
+                client.close()
+            http = _send(sc.port, "GET", "/?q=fgfgeh", HOST)
         assert (got["status"], got["headers"].get("x-waf-action"), got["body"]) == (
             http[0], http[1], http[3]) == (503, "fail-closed", b"WAF unavailable (fail-closed)\n")
         assert 0.25 < waited < 3.0
@@ -504,22 +518,25 @@ def test_verdict_timeout_answered_by_the_reaper(engines):
 
 
 def test_reset_cancels_a_parked_stream(engines, monkeypatch):
-    """RST_STREAM on a parked stream cancels its batcher future, gives back
-    its in-flight bytes and connection slot, and nothing more is written
-    on the stream, not even after its window would have closed."""
+    """RST_STREAM on a parked stream (its lane held busy, so its window
+    stays open) cancels its batcher future, gives back its in-flight bytes
+    and connection slot, and nothing more is written on the stream, not
+    even after its window has closed."""
     sc = _port_sidecar(engines[1], max_batch_delay_ms=1000.0)
     futs = _record_submits(sc, monkeypatch)
     gov = sc.governor
     try:
         client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
         try:
-            _open_streams(client, [("GET", "/?q=fgfgeh", HOST, b"")])
-            assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 1, 10)
-            assert gov.inflight_bytes > 0 and gov.connections == 1
-            client.sock.sendall(tx.h2_frame(tx._F_RST_STREAM, 0, 1, (8).to_bytes(4, "big")))
-            assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 0, 10)
-            assert _wait(lambda: gov.inflight_bytes == 0 and gov.connections == 0, 10)
-            assert len(futs) == 1 and futs[0].cancelled()
+            with lanes_held(sc.batcher, sc.tenants.engine_for(None)):
+                _open_streams(client, [("GET", "/?q=fgfgeh", HOST, b"")])
+                assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 1, 10)
+                assert gov.inflight_bytes > 0 and gov.connections == 1
+                client.sock.sendall(tx.h2_frame(tx._F_RST_STREAM, 0, 1, (8).to_bytes(4, "big")))
+                assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 0, 10)
+                assert _wait(lambda: gov.inflight_bytes == 0 and gov.connections == 0, 10)
+                assert len(futs) == 1 and futs[0].cancelled()
+            # The lane is free: the stream's window closes now.
             client.sock.settimeout(0.3)
             end = time.monotonic() + 1.5
             while time.monotonic() < end:
@@ -536,38 +553,42 @@ def test_reset_cancels_a_parked_stream(engines, monkeypatch):
 
 
 def test_connection_close_releases_parked_streams(engines, monkeypatch):
-    """Closing a connection with parked streams cancels their futures and
-    gives back every stream's connection slot and bytes."""
+    """Closing a connection with parked streams (their lane held busy, so
+    their window stays open) cancels their futures and gives back every
+    stream's connection slot and bytes."""
     sc = _port_sidecar(engines[1], max_batch_delay_ms=5000.0)
     futs = _record_submits(sc, monkeypatch)
     gov = sc.governor
     try:
-        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
-        _open_streams(client, [("GET", f"/?n={i}", HOST, b"") for i in range(5)])
-        assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 5, 10)
-        assert gov.connections == 5
-        client.sock.close()
-        assert _wait(lambda: gov.connections == 0 and gov.inflight_bytes == 0, 10)
-        assert sc.stats()["extproc"]["awaiting"] == 0
-        assert len(futs) == 5 and all(f.cancelled() for f in futs)
+        with lanes_held(sc.batcher, sc.tenants.engine_for(None)):
+            client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+            _open_streams(client, [("GET", f"/?n={i}", HOST, b"") for i in range(5)])
+            assert _wait(lambda: sc.stats()["extproc"]["awaiting"] == 5, 10)
+            assert gov.connections == 5
+            client.sock.close()
+            assert _wait(lambda: gov.connections == 0 and gov.inflight_bytes == 0, 10)
+            assert sc.stats()["extproc"]["awaiting"] == 0
+            assert len(futs) == 5 and all(f.cancelled() for f in futs)
     finally:
         sc.stop()
 
 
 def test_missed_client_deadline_answered_by_the_host_fallback(engines):
     """A parked stream whose ``X-CKO-Deadline-Ms`` passes before the device
-    answers (the batcher holds its window for 3 s) is answered by the host
-    fallback, with the device's verdict."""
+    answers (the batcher's lane is held busy, so its window stays open,
+    for up to its 3 s delay) is answered by the host fallback, with the
+    device's verdict."""
     sc = _port_sidecar(engines[1], max_batch_delay_ms=3000.0)
     try:
         before = sc.degraded.fallback_requests
-        client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
-        try:
-            t0 = time.monotonic()
-            got = client.filter("GET", "/?pet=evilpanda", HOST + [("X-CKO-Deadline-Ms", "150")], b"")
-            waited = time.monotonic() - t0
-        finally:
-            client.close()
+        with lanes_held(sc.batcher, sc.tenants.engine_for(None)):
+            client = tx.ExtProcClient("127.0.0.1", sc.config.extproc_port)
+            try:
+                t0 = time.monotonic()
+                got = client.filter("GET", "/?pet=evilpanda", HOST + [("X-CKO-Deadline-Ms", "150")], b"")
+                waited = time.monotonic() - t0
+            finally:
+                client.close()
         assert (got["status"], got["headers"]["x-waf-action"], got["headers"]["x-waf-rule-id"]) == (
             403, "deny", "2003")
         assert got["body"] == b"blocked by WAF\n"

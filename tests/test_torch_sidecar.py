@@ -169,11 +169,12 @@ def test_metric_family_names_equal(pair):
         return {ln.split()[2] for ln in data.splitlines() if ln.startswith("# TYPE ")}, data
 
     (jf, _jd), (tf, td) = families(pair.j.port), families(pair.t.port)
-    # The port adds a gauge of ext_proc streams parked on their verdict, and
-    # the compile record's and the window log's segment column gauges.
+    # The port adds a gauge of ext_proc streams parked on their verdict, the
+    # compile record's and the window log's segment column gauges, and the
+    # batcher's windows by why they closed.
     assert tf == jf | {"cko_extproc_streams_awaiting", "cko_ruleset_compile_s", "cko_ruleset_groups",
                        "cko_segment_block_columns", "cko_device_table_bytes",
-                       "cko_seg_cols_per_row"}
+                       "cko_seg_cols_per_row", "cko_window_closes_total"}
     info = [ln for ln in td.splitlines() if ln.startswith("cko_build_info{")]
     assert len(info) == 1 and 'platform="cpu"' in info[0] and "torch=" in info[0]
     assert "cuda=" in info[0]

@@ -4,7 +4,7 @@
   names each span's window;
 - ``WafEngine._device_intervals`` puts a window's stage events on the host
   clock between its two bounds;
-- the six readers of ``portbench/metrics/`` that read the log, on a
+- the seven readers of ``portbench/metrics/`` that read the log, on a
   synthetic log: their values, the ``[c0.t, c1.t)`` filter, None on an
   empty log;
 - the flight recorder's pipeline chain of a traced request is copied from
@@ -31,6 +31,7 @@ from coraza_kubernetes_operator_tpu_torch.observability.tracing import (
     WindowLog,
 )
 from coraza_kubernetes_operator_tpu_torch.sidecar.batcher import MicroBatcher
+from torch_hold import lanes_held
 from torch_rules import SMALL_RULES
 
 PREFILTERED = 'SecRule ARGS "@rx (a|bc)*a(a|bc){7}d" "id:2002,phase:2,deny,status:403,t:none"\n'
@@ -122,14 +123,14 @@ def test_device_intervals_sit_between_their_bounds(
 
 def _synthetic_log():
     log = WindowLog()
-    a = log.open(10.0, n_requests=2, extproc_wait_s=0.004, batch_wait_s=0.1)
+    a = log.open(10.0, n_requests=2, extproc_wait_s=0.004, batch_wait_s=0.1, close="idle")
     a.spans += [("assemble", 10.0, 10.01), ("confirm_wait", 10.01, 10.02),
                 ("confirm_search", 10.02, 10.03), ("decode", 10.035, 10.06)]
     a.device += [("post", 10.03, 10.04)]
-    b = log.open(10.5, n_requests=4, extproc_wait_s=0.0, batch_wait_s=0.2)
+    b = log.open(10.5, n_requests=4, extproc_wait_s=0.0, batch_wait_s=0.2, close="delay")
     b.spans += [("assemble", 10.5, 10.52)]
     b.device += [("post", 10.52, 10.56)]
-    late = log.open(11.0, n_requests=8, extproc_wait_s=9.0, batch_wait_s=9.0)
+    late = log.open(11.0, n_requests=8, extproc_wait_s=9.0, batch_wait_s=9.0, close="idle")
     late.spans += [("confirm_search", 11.0, 12.0)]
     late.device += [("post", 11.0, 11.5)]
     for rec in (a, b, late):
@@ -145,6 +146,8 @@ READINGS = {
     "device_unfed_share": 100.0 * (1 - 0.05),
     # host stages 0.065 s, 0.005 of it while the card ran: 0.06 of 0.95 unfed
     "unfed_host_share": 100.0 * 0.06 / 0.95,
+    # one of the two windows closed because its lane had nothing in flight
+    "idle_close_share": 100.0 * 1 / 2,
 }
 
 
@@ -156,7 +159,7 @@ def test_window_log_readers(monkeypatch, family):
     assert read(run) is None
     monkeypatch.setattr(tracing, "WINDOWS", _synthetic_log())
     assert read(run) == pytest.approx(READINGS[family])
-    if family not in ("extproc_wait_ms", "batch_wait_ms", "confirm_search_ms"):
+    if family not in ("extproc_wait_ms", "batch_wait_ms", "confirm_search_ms", "idle_close_share"):
         for rec in tracing.WINDOWS.records():
             rec.device.clear()  # off the card
         assert read(run) is None
@@ -164,13 +167,16 @@ def test_window_log_readers(monkeypatch, family):
 
 def test_pipeline_chain_copied_from_the_window_spans(engine):
     recorder = TraceRecorder(sample_rate=1.0)
-    batcher = MicroBatcher(lambda: engine, max_batch_delay_ms=20)
+    batcher = MicroBatcher(lambda: engine, max_batch_delay_ms=5000)
     batcher.start()
     try:
-        t0 = time.monotonic()
-        ctx = recorder.start(None)
-        futs = [batcher.submit(HttpRequest(uri="/?q=aaaaaaaad"), span=ctx, extproc_wait_s=0.002),
-                batcher.submit(HttpRequest(uri="/?q=bcbcbcbcd"))]
+        # The lane held busy, the two requests share a window, which closes
+        # once the held one is collected.
+        with lanes_held(batcher, engine):
+            t0 = time.monotonic()
+            ctx = recorder.start(None)
+            futs = [batcher.submit(HttpRequest(uri="/?q=aaaaaaaad"), span=ctx, extproc_wait_s=0.002),
+                    batcher.submit(HttpRequest(uri="/?q=bcbcbcbcd"))]
         assert [f.result(timeout=60).rule_id for f in futs] == [2002, None]
         deadline = time.monotonic() + 10
         while not tracing.WINDOWS.records(t0) and time.monotonic() < deadline:
